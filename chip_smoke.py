@@ -9,12 +9,16 @@ Phases (each raises on failure; nothing is caught):
    build of the CUDA kernels from ``colvarsfinder_tpu_torch/csrc``;
 2. kernels K1-K4 against their plain PyTorch versions on the card, at the
    main path's shapes (B = 20,000 frames of 10 atoms, dims [30,20,20,20,1],
-   k = 2) and at a ragged B = 37; K3/K4 must repeat bit for bit;
+   k = 2), at a ragged B = 37 and at one sample past a multiple of K4's
+   tile (there with a seeded cotangent, see EDGE_B); K4 takes the head
+   outputs Y that K3 returns, Y is held against the plain head outputs, and
+   K3/K4 must repeat bit for bit;
 3. each kernel's device time (CUDA events, median of 21 batches of
    back-to-back calls queued behind a device sleep) beside its bound
    (the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s) and
    its plain version's device time (the summed durations of its kernels
-   under torch.profiler);
+   under torch.profiler); K3 + K4 beside their time before K4's redesign,
+   and K4's resident blocks and warps per SM;
 4. transfer-operator EigenFunctionTask training on data shaped like the
    repo's headline benchmark (120,000 frames, 10 atoms, lag 5, batch
    20,000, seed 0) with FusedAlignmentLayer and fused_step=True (K2, K3,
@@ -49,6 +53,10 @@ N_FRAMES, LAG, DT, BATCH = 120_000, 5, 0.002, 20_000
 ALPHA, EIG_W, LR, TEST_RATIO = 20.0, [1.0, 0.2], 0.002, 0.001
 EPOCHS, K1_EPOCHS = 30, 2
 RAGGED_B = 37
+# one sample past a multiple of K4's 64-sample tile
+EDGE_B = 4 * 64 + 1
+# K3 + K4 before K4's redesign (PERF.md, same card model)
+K3_K4_BEFORE_US = 452.6
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 outside tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -61,6 +69,9 @@ TOL = {
     "stats_fwd": dict(atol=1e-4, rtol=5e-6),
     "stats_bwd": dict(atol=1e-3, rtol=2e-3),
 }
+# K3's head outputs against the plain heads: f32 FMA chains against
+# cuBLAS (ten times the CPU tests' model-forward bar)
+Y_TOL = dict(atol=1e-5, rtol=0.0)
 # fused step against plain step over the training curves (the JAX
 # package's fused-vs-plain bar)
 CURVE_RTOL = {"loss": 2e-3, "eig_1": 5e-3}
@@ -175,7 +186,10 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
         kabsch_rotations_quat,
     )
     from colvarsfinder_tpu_torch.ops.fused_eigen import (
+        _mlp_heads,
         _n_params,
+        bwd_launch_shape,
+        bwd_resident_blocks,
         eigen_loss_from_stats,
         flatten_params,
         params_t_of,
@@ -200,7 +214,8 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
     n_stats, _ = stats_layout(K)
     results = {}
 
-    for B in (BATCH, RAGGED_B):
+    bwd = bwd_launch_shape(DIMS, K)
+    for B in (BATCH, RAGGED_B, EDGE_B):
         main = B == BATCH
         X = traj[:B].to(dev)
         Xl = traj[LAG:LAG + B].to(dev)
@@ -218,14 +233,28 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
             sort_eigvals=True,
         )
         (d_stats,) = torch.autograd.grad(loss, stats)
+        if B == EDGE_B:
+            # a seeded unit-scale cotangent: the loss's own at a few hundred
+            # samples is ~1e3 per stat, and the loss is invariant to a shift
+            # of a head's output, so the output-bias gradient is a residue
+            # of ~1e5-sized terms that neither f32 version resolves
+            gen = torch.Generator().manual_seed(B)
+            d_stats = torch.randn(n_stats, generator=gen).to(dev)
         d_stats = d_stats.contiguous()
 
         def k4_plain():
             s = transfer_stats_reference(pt, F, Fl, w, wl)
             return torch.autograd.grad(s, params, d_stats)
 
+        _, Y = stats_fwd_launch(flat, F, Fl, w, wl, DIMS, K)
+        with torch.no_grad():
+            Y_plain = torch.stack([_mlp_heads(pt, F).T, _mlp_heads(pt, Fl).T])
+        torch.testing.assert_close(Y, Y_plain, **Y_TOL)
+        log(f"  K3 head outputs B={B:6d}: max |Y - plain| = "
+            f"{max_err(Y, Y_plain):.3e} (tolerance {Y_TOL})")
+
         def k4_kernel():
-            return stats_bwd_launch(flat, F, Fl, w, wl, d_stats, DIMS, K)
+            return stats_bwd_launch(flat, F, Fl, w, wl, Y, d_stats, DIMS, K)
 
         def k4_unflat(g):
             out = []
@@ -241,7 +270,7 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
                             lambda: align_frames(X, ref, idx64,
                                                  method="quaternion")),
             "stats_fwd": (lambda: stats_fwd_launch(flat, F, Fl, w, wl, DIMS,
-                                                   K),
+                                                   K)[0],
                           lambda: transfer_stats_reference(pt, F, Fl, w, wl)
                           .detach()),
             "stats_bwd": (lambda: k4_unflat(k4_kernel()),
@@ -277,14 +306,14 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
             # rotation of N atoms
             "fused_align": (2 * B * N_ATOMS * 3 * 4 + 16 * N_ATOMS,
                             B * (21 * N_ATOMS + 16 * 12 + 450)),
-            # F, F_l, w, w_l in, stats out; 2 flops per multiply-add of
-            # both passes through k heads
-            "stats_fwd": (2 * B * (DIMS[0] + 1) * 4
+            # F, F_l, w, w_l in, stats and Y [2, k, B] out; 2 flops per
+            # multiply-add of both passes through k heads
+            "stats_fwd": (2 * B * (DIMS[0] + 1) * 4 + 2 * K * B * 4
                           + (_n_params(DIMS, K) + n_stats) * 4,
                           2 * 2 * B * K * fma),
-            # the same inputs + d_stats in, gradients out; forward, the
-            # hidden-layer input cotangents and the weight gradients
-            "stats_bwd": (2 * B * (DIMS[0] + 1) * 4
+            # the same inputs + Y + d_stats in, gradients out; forward,
+            # the hidden-layer input cotangents and the weight gradients
+            "stats_bwd": (2 * B * (DIMS[0] + 1) * 4 + 2 * K * B * 4
                           + (2 * _n_params(DIMS, K) + n_stats) * 4,
                           2 * 2 * B * K * (2 * fma + fma_deep)),
         }
@@ -302,6 +331,16 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
                 f"{bound_ms * 1e3:7.3f} us ({bound_by}: "
                 f"{work[name][0] / 1e6:.2f} MB, {work[name][1] / 1e6:.1f} "
                 "MFLOP)")
+    k3_k4 = (results["stats_fwd"]["ms"] + results["stats_bwd"]["ms"]) * 1e3
+    resident = bwd_resident_blocks(DIMS, K)
+    log(f"  K3 {results['stats_fwd']['ms'] * 1e3:.2f} us + K4 "
+        f"{results['stats_bwd']['ms'] * 1e3:.2f} us = {k3_k4:.2f} us "
+        f"(before K4's redesign: {K3_K4_BEFORE_US} us)")
+    log(f"  K4 launch: tile {bwd.tile} samples x {K} heads, {bwd.threads} "
+        f"threads, {bwd.smem_bytes} B shared memory per block; resident per "
+        f"SM {resident} blocks = {resident * bwd.threads // 32} warps "
+        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor; "
+        f"{bwd.warps_per_sm} by the SM's limits)")
     _cuda.reset_launch_counts()
     return results
 

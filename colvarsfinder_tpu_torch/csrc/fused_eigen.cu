@@ -5,39 +5,58 @@
 // colvarsfinder_tpu/ops/fused_eigen.py:146-215 (launched at :437): the k-head
 // tanh MLP on F and F_l [B, d] reduced to the stats vector
 //   tw, twl, s1[k], s2[k], s1l[k], s2l[k], sd[k], sc[k(k-1)/2]
-// in stats_layout order (fused_eigen.py:72-81).
+// in stats_layout order (fused_eigen.py:72-81). It also writes the head
+// outputs Y [2, k, B] (pass, head, sample) for the backward.
 // cvf_stats_bwd (K4) replaces _bwd_kernel_factory (:230-321, launched at
-// :486): from dL/dstats it recomputes the activations, forms the per-sample
-// output cotangents (:290-299), backpropagates through each head and
-// accumulates dW, db. The data inputs get no gradient.
+// :486): from dL/dstats and K3's Y it forms the per-sample output
+// cotangents (:290-299), runs one forward of a head to get its hidden
+// activations, backpropagates through it and accumulates dW, db. The data
+// inputs get no gradient.
 //
 // Layouts. params (and grads) are one flat float32 buffer; for each layer l
 // it holds W_t[l] [k, d_l, d_{l+1}] then b[l] [k, d_{l+1}] (the transposed
-// weight layout of params_t_of). The last layer has d_L = 1.
+// weight layout of params_t_of). The last layer has d_L = 1. Per-sample rows
+// live in shared memory as [width][T + 1]: the +1 puts rows read at the same
+// sample column on different banks.
 //
-// Design. A block of T threads (T = 32, 64 or 128, chosen by the caller so
-// that the shared memory below fits) owns one tile of T consecutive
-// samples, one thread per sample. All heads' weights sit in shared memory;
-// per-sample activations live in shared memory as rows [width][T + 1] (the
-// +1 pads away bank conflicts when threads read different rows). The tail
-// tile is masked: its missing samples read zeros and carry zero weight, so
-// they add nothing to any statistic or gradient; the caller's tensors are
-// never padded.
+// K3. A block of T threads (T = 32, 64 or 128, the largest whose shared
+// memory fits) owns T consecutive samples, one thread per sample, with all
+// heads' weights in shared memory.
+//
+// K4. What bounds it on the H100: at the main-path shapes (B = 20,000,
+// dims [30,20,20,20,1], k = 2) it must do ~586 MFLOP of float32 FMA (8.7 us
+// at 67 TFLOP/s) and move ~5 MB (1.5 us), so it is bound by operations.
+// Every product reads its operands from shared memory, and the first
+// design (one thread per sample, all heads in one block, 4-8 warps per SM)
+// ran one long dependent chain of shared-memory FMAs per thread: the time
+// was one thread's latency, not the card's rate. This design spreads the
+// work over many more warps and makes each load feed several FMAs:
+//   - one block per (sample tile of T = 64, head), both passes inside the
+//     block; the block holds only its head's weights, ~50 KB of shared
+//     memory at the main shapes; __launch_bounds__ leave 80 registers a
+//     thread, so 3 blocks (24 warps) are resident per SM;
+//   - 4 threads per sample (256 threads): in each layer's forward and in
+//     the cotangent backprop a warp owns 4 rows over the tile, each lane
+//     4 x (T/32) independent accumulators; where a layer's rows are
+//     16-byte aligned, a row's 4 weights are one broadcast float4 load;
+//   - the dW contraction gives a lane pair a 4 x 4 register tile of
+//     (input row, output) entries (the bias is the input row of ones); the
+//     two lanes walk the even and the odd samples, 8 loads for 16 FMAs,
+//     and add their halves with one shuffle;
+//   - no second forward: K3 saved the head outputs Y, so the cotangents
+//     come straight from Y, and each (pass, head) runs its forward once;
+//   - all global loads are cp.async copies in flight together.
+// The ragged tail is masked: missing samples read zeros and carry weight 0,
+// so they add nothing to any statistic or gradient; the caller's tensors
+// are never padded.
 //
 // Determinism. TPU grids run in order and the Pallas kernels accumulate
 // every tile into one output block. CUDA blocks run in no order, so each
-// block writes its own partial vector and a second launch reduces the
-// partials over blocks in a fixed order (one warp per output, fixed
-// strided lanes, fixed shuffle tree). No atomics: two calls on the same
-// inputs give bitwise-identical results.
-//
-// What bounds them on the H100: at the main-path shapes (B = 20,000,
-// dims [30,20,20,20,1], k = 2) K3 does ~227 MFLOP of float32 FMA
-// (~3.4 us at 67 TFLOP/s) against 4.8 MB of input (~1.4 us at 3.35 TB/s),
-// and K4 about three times K3's work, so both are bound by operations.
-// This first version reads both operands of every FMA from shared memory,
-// which caps it well below the FMA peak; register tiling of the per-layer
-// products and wgmma for the dW contraction are later work.
+// block writes its own partial vector (K4: its head's slice of the tile's
+// row) and a second launch reduces the partials over sample tiles in a
+// fixed order (one warp per output, fixed strided lanes, fixed shuffle
+// tree). Every sum inside a block also runs in a fixed order. No atomics:
+// two calls on the same inputs give bitwise-identical results.
 
 #include <cuda_runtime.h>
 
@@ -45,6 +64,8 @@ namespace {
 
 constexpr int kMaxLayers = 16;
 constexpr int kReduceThreads = 256;
+constexpr int kDI = 4;  // K4 dW: input rows per lane-pair tile
+constexpr int kDJ = 4;  // K4 dW: outputs per lane-pair tile
 
 struct Dims {
     int n;                     // number of layers
@@ -58,17 +79,13 @@ __device__ __forceinline__ float act_tanh(float x) {
     return 1.0f - 2.0f / (expf(2.0f * xc) + 1.0f);
 }
 
-// Forward of head kk for sample column s.
-// in: input rows [d0][P]; hid: where hidden outputs go. With pingpong the
-// hidden layers alternate between two buffers of maxH rows (forward only);
-// without it layer l's outputs are stored at rows offset sum_{j<l} d[j+1]
-// (kept for the backward pass). Returns the scalar head output.
+// K3: forward of head kk for sample column s; the hidden layers alternate
+// between two buffers of maxH rows. Returns the scalar head output.
 __device__ float mlp_forward(const float* __restrict__ sW, const Dims& D,
                              int k, int kk, const float* in, float* hid,
-                             int P, int s, bool pingpong, int maxH) {
+                             int P, int s, int maxH) {
     const float* src = in;
     int woff = 0;
-    int hoff = 0;
     float y = 0.0f;
     for (int l = 0; l < D.n; ++l) {
         const int din = D.d[l], dout = D.d[l + 1];
@@ -79,7 +96,7 @@ __device__ float mlp_forward(const float* __restrict__ sW, const Dims& D,
             for (int i = 0; i < din; ++i) acc += src[i * P + s] * W[i];
             y = acc;
         } else {
-            float* dst = pingpong ? hid + (l & 1) * maxH * P : hid + hoff * P;
+            float* dst = hid + (l & 1) * maxH * P;
             for (int o = 0; o < dout; ++o) {
                 float acc = bias[o];
                 for (int i = 0; i < din; ++i)
@@ -87,20 +104,36 @@ __device__ float mlp_forward(const float* __restrict__ sW, const Dims& D,
                 dst[o * P + s] = act_tanh(acc);
             }
             src = dst;
-            hoff += dout;
         }
         woff += k * din * dout + k * dout;
     }
     return y;
 }
 
-// load a [rows x d0] tile of X (row-major [B, d0]) into sIn[d0][P],
+// asynchronous 4-byte global -> shared copy (cp.async, sm_80+); with valid
+// false nothing is read and the destination gets 0. All of a thread's copies
+// are in flight together until cp_async_wait_all.
+__device__ __forceinline__ void cp_async_f32(float* dst, const float* src,
+                                             bool valid) {
+    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid ? 4 : 0)
+                 : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// cp.async a [rows x d0] tile of X (row-major [B, d0]) into sIn[d0][P],
 // zero-filling rows past the end of the batch
-__device__ void load_tile(const float* __restrict__ X, float* sIn, long b0,
-                          int rows, int d0, int T, int P) {
-    for (int e = threadIdx.x; e < T * d0; e += T) {
+__device__ void load_tile(const float* __restrict__ X, float* sIn,
+                                long b0, int rows, int d0, int T, int P) {
+    for (int e = threadIdx.x; e < T * d0; e += blockDim.x) {
         const int ss = e / d0, i = e - ss * d0;
-        sIn[i * P + ss] = ss < rows ? X[(b0 + ss) * d0 + i] : 0.0f;
+        const bool valid = ss < rows;
+        cp_async_f32(sIn + i * P + ss, valid ? X + (b0 + ss) * d0 + i : X,
+                     valid);
     }
 }
 
@@ -145,7 +178,8 @@ __global__ void stats_fwd_kernel(const float* __restrict__ params,
                                  const float* __restrict__ Fl,
                                  const float* __restrict__ w,
                                  const float* __restrict__ wl,
-                                 float* __restrict__ partials, Dims D, int k,
+                                 float* __restrict__ partials,
+                                 float* __restrict__ Y, Dims D, int k,
                                  int n_params, int n_stats, int B, int maxH) {
     extern __shared__ float smem[];
     const int T = blockDim.x, P = T + 1, s = threadIdx.x;
@@ -166,11 +200,16 @@ __global__ void stats_fwd_kernel(const float* __restrict__ params,
     for (int pass = 0; pass < 2; ++pass) {
         __syncthreads();
         load_tile(pass ? Fl : F, sIn, b0, rows, d0, T, P);
+        cp_async_wait_all();
         __syncthreads();
         for (int kk = 0; kk < k; ++kk)
             sY[(pass * k + kk) * T + s] =
-                mlp_forward(sW, D, k, kk, sIn, sH, P, s, true, maxH);
+                mlp_forward(sW, D, k, kk, sIn, sH, P, s, maxH);
     }
+    // the head outputs, for K4 (each thread writes its own sample's)
+    if (s < rows)
+        for (int pk = 0; pk < 2 * k; ++pk)
+            Y[(size_t)pk * B + b0 + s] = sY[pk * T + s];
     __syncthreads();
 
     // stat j is reduced by warp j % nwarps over the tile, in a fixed order
@@ -186,141 +225,332 @@ __global__ void stats_fwd_kernel(const float* __restrict__ params,
     }
 }
 
-__global__ void stats_bwd_kernel(const float* __restrict__ params,
-                                 const float* __restrict__ F,
-                                 const float* __restrict__ Fl,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ wl,
-                                 const float* __restrict__ dstats,
-                                 float* __restrict__ partials, Dims D, int k,
-                                 int n_params, int n_stats, int B,
-                                 int hid_rows) {
-    extern __shared__ float smem[];
-    const int T = blockDim.x, P = T + 1, s = threadIdx.x;
-    const int d0 = D.d[0], L = D.n;
-    float* sW = smem;                    // [n_params]
-    float* sGrad = sW + n_params;        // [n_params], thread-owned entries
-    float* sDs = sGrad + n_params;       // [n_stats]
-    float* sY = sDs + n_stats;           // [2][k][T]
-    float* sw = sY + 2 * k * T;          // [T]
-    float* swl = sw + T;                 // [T]
-    float* sIn = swl + T;                // [d0][P]
-    float* sAct = sIn + d0 * P;          // hidden outputs [hid_rows][P]
-    float* sG = sAct + hid_rows * P;     // layer-output cotangents [hid_rows+1][P]
+__device__ __forceinline__ float lane_of(const float4& v, int u) {
+    return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
+}
 
-    for (int i = s; i < n_params; i += T) {
-        sW[i] = params[i];
-        sGrad[i] = 0.0f;
+// K4 forward of one hidden layer over a tile of T = 32 * RT samples:
+//   out[o][t] = tanh(b[o] + sum_i in[i][t] * W_t[i][o]),  W_t [din][dout]
+// then b [dout] at W. Warp w owns rows 4w.. (then 4(w + nwarps), ...), lane
+// the samples lane + 32 r; the sum over i runs in order. With VEC (dout % 4
+// == 0 and W 16-byte aligned) a row's four weights are one broadcast float4
+// load.
+template <int RT, bool VEC>
+__device__ __forceinline__ void rows_forward(const float* in, int din,
+                                             const float* W, int dout,
+                                             float* out) {
+    constexpr int P = 32 * RT + 1;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    const float* bias = W + din * dout;
+    for (int o0 = warp * 4; o0 < dout; o0 += nwarps * 4) {
+        int oc[4];
+        float acc[4][RT];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            oc[j] = min(o0 + j, dout - 1);
+#pragma unroll
+            for (int r = 0; r < RT; ++r) acc[j][r] = bias[oc[j]];
+        }
+#pragma unroll 4
+        for (int i = 0; i < din; ++i) {
+            float x[RT], wv[4];
+#pragma unroll
+            for (int r = 0; r < RT; ++r) x[r] = in[i * P + lane + 32 * r];
+            if constexpr (VEC) {
+                const float4 w4 =
+                    *reinterpret_cast<const float4*>(W + i * dout + o0);
+#pragma unroll
+                for (int j = 0; j < 4; ++j) wv[j] = lane_of(w4, j);
+            } else {
+#pragma unroll
+                for (int j = 0; j < 4; ++j) wv[j] = W[i * dout + oc[j]];
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+                for (int r = 0; r < RT; ++r)
+                    acc[j][r] = fmaf(x[r], wv[j], acc[j][r]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            if (o0 + j >= dout) break;
+#pragma unroll
+            for (int r = 0; r < RT; ++r)
+                out[(o0 + j) * P + lane + 32 * r] = act_tanh(acc[j][r]);
+        }
     }
-    for (int i = s; i < n_stats; i += T) sDs[i] = dstats[i];
+}
+
+// K4 cotangent of a layer's inputs over the tile:
+//   out[i][t] = (sum_o W_t[i][o] g[o][t]) * (1 - a[i][t]^2)
+// Warp w owns rows 4w.., lane the samples lane + 32 r; the sum over o runs
+// in order. With VEC it runs in chunks of four outputs, each row's four
+// weights one float4 load.
+template <int RT, bool VEC>
+__device__ __forceinline__ void rows_backward(const float* g, int dout,
+                                              const float* W, int din,
+                                              float* out, const float* a) {
+    constexpr int P = 32 * RT + 1;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+    for (int i0 = warp * 4; i0 < din; i0 += nwarps * 4) {
+        const float* Wr[4];
+        float acc[4][RT];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            Wr[q] = W + min(i0 + q, din - 1) * dout;
+#pragma unroll
+            for (int r = 0; r < RT; ++r) acc[q][r] = 0.0f;
+        }
+        if constexpr (VEC) {
+#pragma unroll 2
+            for (int c = 0; c < dout; c += 4) {
+                float4 w4[4];
+#pragma unroll
+                for (int q = 0; q < 4; ++q)
+                    w4[q] = *reinterpret_cast<const float4*>(Wr[q] + c);
+#pragma unroll
+                for (int u = 0; u < 4; ++u) {
+                    float x[RT];
+#pragma unroll
+                    for (int r = 0; r < RT; ++r)
+                        x[r] = g[(c + u) * P + lane + 32 * r];
+#pragma unroll
+                    for (int q = 0; q < 4; ++q)
+#pragma unroll
+                        for (int r = 0; r < RT; ++r)
+                            acc[q][r] =
+                                fmaf(x[r], lane_of(w4[q], u), acc[q][r]);
+                }
+            }
+        } else {
+#pragma unroll 4
+            for (int o = 0; o < dout; ++o) {
+                float x[RT];
+#pragma unroll
+                for (int r = 0; r < RT; ++r) x[r] = g[o * P + lane + 32 * r];
+#pragma unroll
+                for (int q = 0; q < 4; ++q) {
+                    const float wv = Wr[q][o];
+#pragma unroll
+                    for (int r = 0; r < RT; ++r)
+                        acc[q][r] = fmaf(x[r], wv, acc[q][r]);
+                }
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+            if (i0 + q >= din) break;
+#pragma unroll
+            for (int r = 0; r < RT; ++r) {
+                const int idx = (i0 + q) * P + lane + 32 * r;
+                const float av = a[idx];
+                out[idx] = acc[q][r] * (1.0f - av * av);
+            }
+        }
+    }
+}
+
+// one block per (sample tile of T = 32 * RT, head blockIdx.y), 4 * T
+// threads; shared memory in the order below (stats_smem_bytes in
+// ops/fused_eigen.py mirrors it)
+template <int RT>
+__global__ void __launch_bounds__(128 * RT, 6 / RT)
+stats_bwd_kernel(const float* __restrict__ params,
+                 const float* __restrict__ F, const float* __restrict__ Fl,
+                 const float* __restrict__ w, const float* __restrict__ wl,
+                 const float* __restrict__ Y,
+                 const float* __restrict__ dstats,
+                 float* __restrict__ partials, Dims D, int k, int n_params,
+                 int B, int hid_rows) {
+    constexpr int T = 32 * RT, P = T + 1;
+    extern __shared__ __align__(16) float smem[];
+    const int tid = threadIdx.x, NT = blockDim.x;
+    const int kk = blockIdx.y;
+    const int d0 = D.d[0], L = D.n;
+
+    // woff: layer l's block in params (all heads); hoff: in the head's
+    // compact copy (W_t [din][dout] then b [dout] per layer); goff: row of
+    // layer l's outputs in sG (and, for hidden layers, at d0 + goff in
+    // sAct); the output layer's row is hid_rows + pass
+    int woff[kMaxLayers], hoff[kMaxLayers], goff[kMaxLayers];
+    int n_head = 0, n_tiles = 0;
+    {
+        int wo = 0, go = 0;
+        for (int l = 0; l < L; ++l) {
+            const int din = D.d[l], dout = D.d[l + 1];
+            woff[l] = wo;
+            hoff[l] = n_head;
+            goff[l] = go;
+            wo += k * (din * dout + dout);
+            n_head += din * dout + dout;
+            go += dout;
+            n_tiles += ((din + kDI) / kDI) * ((dout + kDJ - 1) / kDJ);
+        }
+    }
+
+    float* sW = smem;                        // [n_head]
+    float* sGrad = sW + n_head;              // [n_head], thread-owned
+    float* sOnes = sGrad + n_head;           // [T], the bias's input row
+    float* sAct = sOnes + T;                 // [d0 + hid_rows][P]
+    float* sG = sAct + (d0 + hid_rows) * P;  // [hid_rows + 2][P]
+
+    for (int l = 0; l < L; ++l) {
+        const int din = D.d[l], dout = D.d[l + 1], nw = din * dout;
+        const float* gW = params + woff[l] + kk * nw;
+        const float* gb = params + woff[l] + k * nw + kk * dout;
+        for (int e = tid; e < nw + dout; e += NT) {
+            cp_async_f32(sW + hoff[l] + e, e < nw ? gW + e : gb + (e - nw),
+                         true);
+            sGrad[hoff[l] + e] = 0.0f;
+        }
+    }
     const long b0 = (long)blockIdx.x * T;
     const int rows = (long)B - b0 < T ? (int)((long)B - b0) : T;
-    const float ws = s < rows ? w[b0 + s] : 0.0f;
-    const float wls = s < rows ? wl[b0 + s] : 0.0f;
-    sw[s] = ws;
-    swl[s] = wls;
-
-    // phase 0: every head's output on both passes (the cotangents couple
-    // the heads through sc and the passes through sd)
-    for (int pass = 0; pass < 2; ++pass) {
-        __syncthreads();
-        load_tile(pass ? Fl : F, sIn, b0, rows, d0, T, P);
-        __syncthreads();
-        for (int kk = 0; kk < k; ++kk)
-            sY[(pass * k + kk) * T + s] =
-                mlp_forward(sW, D, k, kk, sIn, sAct, P, s, false, 0);
-    }
-
-    const int o_s1 = 2, o_s2 = 2 + k, o_s1l = 2 + 2 * k, o_s2l = 2 + 3 * k;
-    const int o_sd = 2 + 4 * k, o_sc = 2 + 5 * k;
-    int woff_l[kMaxLayers];  // offset of layer l's block in params
-    {
-        int woff = 0;
-        for (int l = 0; l < L; ++l) {
-            woff_l[l] = woff;
-            woff += k * D.d[l] * D.d[l + 1] + k * D.d[l + 1];
+    load_tile(F, sAct, b0, rows, d0, T, P);
+    if (tid < T) {
+        // this head's output cotangent for sample tid on both passes, from
+        // K3's head outputs (the cotangents couple the heads through sc and
+        // the passes through sd); missing samples carry weight 0
+        const int t = tid;
+        const bool v = t < rows;
+        const long b = b0 + (v ? t : 0);
+        const float ws = v ? w[b] : 0.0f, wls = v ? wl[b] : 0.0f;
+        const float Yv = v ? Y[(size_t)kk * B + b] : 0.0f;
+        const float Yl = v ? Y[(size_t)(k + kk) * B + b] : 0.0f;
+        const float* ds = dstats;
+        const int o_s1 = 2, o_s2 = 2 + k, o_s1l = 2 + 2 * k;
+        const int o_s2l = 2 + 3 * k, o_sd = 2 + 4 * k, o_sc = 2 + 5 * k;
+        const float dYd = Yl - Yv;
+        float cross = 0.0f;
+        for (int j = 0; j < k; ++j) {
+            if (j == kk) continue;
+            const int pi = j > kk ? pair_index(kk, j, k) : pair_index(j, kk, k);
+            cross += (v ? Y[(size_t)j * B + b] : 0.0f) * ds[o_sc + pi];
         }
+        sG[hid_rows * P + t] =
+            ws * (ds[o_s1 + kk] + 2.0f * ds[o_s2 + kk] * Yv -
+                  2.0f * ds[o_sd + kk] * dYd + cross);
+        sG[(hid_rows + 1) * P + t] =
+            wls * (ds[o_s1l + kk] + 2.0f * ds[o_s2l + kk] * Yl) +
+            2.0f * ws * ds[o_sd + kk] * dYd;
+        sOnes[t] = 1.0f;
     }
 
-    // phase 1: per pass and head, recompute with stored activations,
-    // backpropagate, and add this tile's parameter gradients
     for (int pass = 0; pass < 2; ++pass) {
-        __syncthreads();
-        load_tile(pass ? Fl : F, sIn, b0, rows, d0, T, P);
-        __syncthreads();
-        for (int kk = 0; kk < k; ++kk) {
-            mlp_forward(sW, D, k, kk, sIn, sAct, P, s, false, 0);
-            const float Y = sY[kk * T + s], Yl = sY[(k + kk) * T + s];
-            const float dYd = Yl - Y;
-            float g;
-            if (pass == 0) {
-                float cross = 0.0f;
-                for (int j = 0; j < k; ++j) {
-                    if (j == kk) continue;
-                    const int pi = j > kk ? pair_index(kk, j, k)
-                                          : pair_index(j, kk, k);
-                    cross += sY[j * T + s] * sDs[o_sc + pi];
-                }
-                g = ws * (sDs[o_s1 + kk] + 2.0f * sDs[o_s2 + kk] * Y -
-                          2.0f * sDs[o_sd + kk] * dYd + cross);
-            } else {
-                g = wls * (sDs[o_s1l + kk] + 2.0f * sDs[o_s2l + kk] * Yl) +
-                    2.0f * ws * sDs[o_sd + kk] * dYd;
-            }
-
-            // cotangent rows: layer l's outputs start at row goff[l] =
-            // sum_{j<l} d[j+1]; the output layer's single row is hid_rows
-            sG[hid_rows * P + s] = g;
-            int goff_out = hid_rows;
-            for (int l = L - 1; l >= 1; --l) {
-                const int din = D.d[l], dout = D.d[l + 1];
-                const float* W = sW + woff_l[l] + kk * din * dout;
-                const int goff_in = goff_out - din;
-                const float* gout = sG + goff_out * P;
-                const float* ain = sAct + goff_in * P;  // layer l's input
-                float* gin = sG + goff_in * P;
-                for (int i = 0; i < din; ++i) {
-                    float acc = 0.0f;
-                    for (int o = 0; o < dout; ++o)
-                        acc += W[i * dout + o] * gout[o * P + s];
-                    const float a = ain[i * P + s];
-                    gin[i * P + s] = acc * (1.0f - a * a);
-                }
-                goff_out = goff_in;
-            }
+        if (pass) {
+            // pass 0's dW is done with the input rows
             __syncthreads();
+            load_tile(Fl, sAct, b0, rows, d0, T, P);
+        }
+        cp_async_wait_all();
+        __syncthreads();
+        goff[L - 1] = hid_rows + pass;
 
-            // dW_t[l][i][o] += sum_t in_l[i][t] * g_l[o][t]; db += sum_t g
-            int goff = 0;
-            for (int l = 0; l < L; ++l) {
-                const int din = D.d[l], dout = D.d[l + 1];
-                const float* ain =
-                    l == 0 ? sIn : sAct + (goff - din) * P;
-                const float* gout = sG + goff * P;
-                const int nw = din * dout;
-                float* gW = sGrad + woff_l[l] + kk * nw;
-                float* gb = sGrad + woff_l[l] + k * nw + kk * dout;
-                for (int p = s; p < nw + dout; p += T) {
-                    float acc = 0.0f;
-                    if (p < nw) {
-                        const int i = p / dout, o = p - i * dout;
-                        for (int t = 0; t < T; ++t)
-                            acc += ain[i * P + t] * gout[o * P + t];
-                        gW[p] += acc;
-                    } else {
-                        const int o = p - nw;
-                        for (int t = 0; t < T; ++t) acc += gout[o * P + t];
-                        gb[o] += acc;
-                    }
-                }
-                goff += dout;
-            }
+        // forward through the hidden layers (the output layer's value is Y)
+        for (int l = 0; l < L - 1; ++l) {
+            const int din = D.d[l], dout = D.d[l + 1];
+            const float* ain = sAct + (l == 0 ? 0 : d0 + goff[l - 1]) * P;
+            float* aout = sAct + (d0 + goff[l]) * P;
+            if (dout % 4 == 0 && hoff[l] % 4 == 0)
+                rows_forward<RT, true>(ain, din, sW + hoff[l], dout, aout);
+            else
+                rows_forward<RT, false>(ain, din, sW + hoff[l], dout, aout);
             __syncthreads();
         }
-    }
 
-    for (int i = s; i < n_params; i += T)
-        partials[(size_t)blockIdx.x * n_params + i] = sGrad[i];
+        // cotangents of the hidden layers' outputs, last layer first:
+        // g_{l-1}[i][t] = (sum_o W_t[l][i][o] g_l[o][t]) * (1 - a[i][t]^2)
+        for (int l = L - 1; l >= 1; --l) {
+            const int din = D.d[l], dout = D.d[l + 1];
+            const float* gl = sG + goff[l] * P;
+            float* gin = sG + goff[l - 1] * P;
+            const float* a = sAct + (d0 + goff[l - 1]) * P;
+            if (dout % 4 == 0 && hoff[l] % 4 == 0)
+                rows_backward<RT, true>(gl, dout, sW + hoff[l], din, gin, a);
+            else
+                rows_backward<RT, false>(gl, dout, sW + hoff[l], din, gin, a);
+            __syncthreads();
+        }
+
+        // dW_t[l][i][o] += sum_t in_l[i][t] g_l[o][t]; the bias is row
+        // i = din with in = 1, which lands on b[l][o] in the compact layout.
+        // A lane pair owns a kDI x kDJ tile, the even and the odd samples
+        // one lane each, and sums the two halves with one shuffle; each
+        // entry belongs to the same pair in both passes.
+        const int h = tid & 1;
+        const unsigned pair = 3u << (tid & 30);
+        for (int wt = tid >> 1; wt < n_tiles; wt += NT >> 1) {
+            int l = 0, r = wt, din, dout, n_ot;
+            for (;;) {
+                din = D.d[l];
+                dout = D.d[l + 1];
+                n_ot = (dout + kDJ - 1) / kDJ;
+                const int n = ((din + kDI) / kDI) * n_ot;
+                if (r < n) break;
+                r -= n;
+                ++l;
+            }
+            const int it = r / n_ot, ot = r - it * n_ot;
+            const int i0 = it * kDI, o0 = ot * kDJ;
+            const float* ain = sAct + (l == 0 ? 0 : d0 + goff[l - 1]) * P;
+            const float* arow[kDI];
+            const float* grow[kDJ];
+#pragma unroll
+            for (int a = 0; a < kDI; ++a) {
+                const int i = min(i0 + a, din);
+                arow[a] = i == din ? sOnes : ain + i * P;
+            }
+#pragma unroll
+            for (int j = 0; j < kDJ; ++j)
+                grow[j] = sG + (goff[l] + min(o0 + j, dout - 1)) * P;
+            float acc[kDI][kDJ];
+#pragma unroll
+            for (int a = 0; a < kDI; ++a)
+#pragma unroll
+                for (int j = 0; j < kDJ; ++j) acc[a][j] = 0.0f;
+#pragma unroll 4
+            for (int t = h; t < T; t += 2) {
+                float av[kDI], gv[kDJ];
+#pragma unroll
+                for (int a = 0; a < kDI; ++a) av[a] = arow[a][t];
+#pragma unroll
+                for (int j = 0; j < kDJ; ++j) gv[j] = grow[j][t];
+#pragma unroll
+                for (int a = 0; a < kDI; ++a)
+#pragma unroll
+                    for (int j = 0; j < kDJ; ++j)
+                        acc[a][j] = fmaf(av[a], gv[j], acc[a][j]);
+            }
+#pragma unroll
+            for (int a = 0; a < kDI; ++a)
+#pragma unroll
+                for (int j = 0; j < kDJ; ++j)
+                    acc[a][j] += __shfl_xor_sync(pair, acc[a][j], 1);
+            if (h) continue;
+            float* dst = sGrad + hoff[l];
+#pragma unroll
+            for (int a = 0; a < kDI; ++a) {
+                if (i0 + a > din) break;
+#pragma unroll
+                for (int j = 0; j < kDJ; ++j)
+                    if (o0 + j < dout)
+                        dst[(i0 + a) * dout + o0 + j] += acc[a][j];
+            }
+        }
+    }
+    __syncthreads();
+
+    // this head's slice of the tile's partial gradient row
+    float* part = partials + (size_t)blockIdx.x * n_params;
+    for (int l = 0; l < L; ++l) {
+        const int din = D.d[l], dout = D.d[l + 1], nw = din * dout;
+        for (int e = tid; e < nw + dout; e += NT)
+            part[e < nw ? woff[l] + kk * nw + e
+                        : woff[l] + k * nw + kk * dout + (e - nw)] =
+                sGrad[hoff[l] + e];
+    }
 }
 
 // out[j] = sum over blocks of partials[b][j], one warp per output, in a
@@ -355,20 +585,49 @@ int launch_reduce(const float* partials, float* out, int nblocks, int n,
     return (int)cudaGetLastError();
 }
 
+template <int RT>
+int launch_bwd(const float* params, const float* F, const float* Fl,
+               const float* w, const float* wl, const float* Y,
+               const float* dstats, float* partials, const Dims& D, int k,
+               int n_params, int B, int hid_rows, int smem_bytes,
+               cudaStream_t st) {
+    constexpr int T = 32 * RT;
+    cudaError_t err = cudaFuncSetAttribute(
+        stats_bwd_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((B + T - 1) / T, k);
+    stats_bwd_kernel<RT><<<grid, 4 * T, smem_bytes, st>>>(
+        params, F, Fl, w, wl, Y, dstats, partials, D, k, n_params, B,
+        hid_rows);
+    return (int)cudaGetLastError();
+}
+
+template <int RT>
+int bwd_occupancy(int smem_bytes, int* blocks_per_sm) {
+    cudaError_t err = cudaFuncSetAttribute(
+        stats_bwd_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, stats_bwd_kernel<RT>, 128 * RT, smem_bytes);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launch on `stream`, no synchronization; return cudaGetLastError() (0 on
-// success), or cudaErrorInvalidValue for dims the kernels do not take.
-// partials must hold ceil(B / tile) * n_stats (fwd) or * n_params (bwd)
-// floats; smem_bytes is the dynamic shared memory of the block, computed
-// by the caller from the layout above.
+// success), or cudaErrorInvalidValue for dims or tiles the kernels do not
+// take. partials must hold ceil(B / tile) * n_stats (fwd) or * n_params
+// (bwd) floats; Y is [2, k, B]; smem_bytes is the dynamic shared memory of
+// the block, computed by the caller from the layouts above. K4's tile is 32
+// or 64 samples, with 4 threads per sample.
 
 int cvf_stats_fwd(const float* params, const float* F, const float* Fl,
                   const float* w, const float* wl, float* partials,
-                  float* stats, const int* dims, int n_layers, int k, int B,
-                  int tile, int smem_bytes, void* stream) {
+                  float* stats, float* Y, const int* dims, int n_layers,
+                  int k, int B, int tile, int smem_bytes, void* stream) {
     Dims D;
     if (!make_dims(dims, n_layers, &D) || B <= 0 || tile % 32 != 0)
         return (int)cudaErrorInvalidValue;
@@ -385,38 +644,42 @@ int cvf_stats_fwd(const float* params, const float* F, const float* Fl,
     const int nblocks = (B + tile - 1) / tile;
     cudaStream_t st = (cudaStream_t)stream;
     stats_fwd_kernel<<<nblocks, tile, smem_bytes, st>>>(
-        params, F, Fl, w, wl, partials, D, k, n_params, n_stats, B, maxH);
+        params, F, Fl, w, wl, partials, Y, D, k, n_params, n_stats, B, maxH);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     return launch_reduce(partials, stats, nblocks, n_stats, st);
 }
 
 int cvf_stats_bwd(const float* params, const float* F, const float* Fl,
-                  const float* w, const float* wl, const float* dstats,
-                  float* partials, float* grads, const int* dims,
-                  int n_layers, int k, int B, int tile, int smem_bytes,
-                  void* stream) {
+                  const float* w, const float* wl, const float* Y,
+                  const float* dstats, float* partials, float* grads,
+                  const int* dims, int n_layers, int k, int B, int tile,
+                  int smem_bytes, void* stream) {
     Dims D;
-    if (!make_dims(dims, n_layers, &D) || B <= 0 || tile % 32 != 0)
+    if (!make_dims(dims, n_layers, &D) || B <= 0 || (tile != 32 && tile != 64))
         return (int)cudaErrorInvalidValue;
     int n_params = 0, hid_rows = 0;
     for (int l = 0; l < n_layers; ++l) {
         n_params += k * D.d[l] * D.d[l + 1] + k * D.d[l + 1];
         if (l < n_layers - 1) hid_rows += D.d[l + 1];
     }
-    const int n_stats = 2 + 5 * k + k * (k - 1) / 2;
-    cudaError_t err = cudaFuncSetAttribute(
-        stats_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    const int nblocks = (B + tile - 1) / tile;
     cudaStream_t st = (cudaStream_t)stream;
-    stats_bwd_kernel<<<nblocks, tile, smem_bytes, st>>>(
-        params, F, Fl, w, wl, dstats, partials, D, k, n_params, n_stats, B,
-        hid_rows);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    return launch_reduce(partials, grads, nblocks, n_params, st);
+    const int err =
+        tile == 64
+            ? launch_bwd<2>(params, F, Fl, w, wl, Y, dstats, partials, D, k,
+                            n_params, B, hid_rows, smem_bytes, st)
+            : launch_bwd<1>(params, F, Fl, w, wl, Y, dstats, partials, D, k,
+                            n_params, B, hid_rows, smem_bytes, st);
+    if (err != 0) return err;
+    return launch_reduce(partials, grads, (B + tile - 1) / tile, n_params, st);
+}
+
+// K4 blocks resident on one SM at this tile and shared memory
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
+int cvf_stats_bwd_occupancy(int tile, int smem_bytes, int* blocks_per_sm) {
+    if (tile == 64) return bwd_occupancy<2>(smem_bytes, blocks_per_sm);
+    if (tile == 32) return bwd_occupancy<1>(smem_bytes, blocks_per_sm);
+    return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -49,8 +49,9 @@ _SIGNATURES = {
         "cvf_fused_align": (_P, _P, _P, _P, _I, _I, _I, _P),
     },
     "fused_eigen": {
-        "cvf_stats_fwd": (_P,) * 7 + (_P, _I, _I, _I, _I, _I, _P),
-        "cvf_stats_bwd": (_P,) * 8 + (_P, _I, _I, _I, _I, _I, _P),
+        "cvf_stats_fwd": (_P,) * 8 + (_P, _I, _I, _I, _I, _I, _P),
+        "cvf_stats_bwd": (_P,) * 9 + (_P, _I, _I, _I, _I, _I, _P),
+        "cvf_stats_bwd_occupancy": (_I, _I, _P),
     },
 }
 

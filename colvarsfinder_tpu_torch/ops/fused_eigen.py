@@ -24,19 +24,21 @@ The plain version of both kernels is :func:`transfer_stats_reference` with
 autograd; the wrapper takes it for CPU tensors and launches the kernels for
 CUDA tensors.
 
-Limits of the CUDA design: a block keeps all heads' weights (twice in the
-backward, for the gradient accumulators) and a tile of per-sample
-activations in shared memory, so the footprint of
-:func:`stats_smem_bytes` at the smallest tile (32 samples) must fit the
-H100's 227 KB per block; the last layer must have width 1 and there may be
-at most 16 layers. The JAX limits ``k * hidden <= 256`` and ``k <= 9``
-came from TPU VMEM and the 128-lane row and do not apply.
-:func:`fused_tile` checks this.
+Limits of the CUDA design. K3 keeps all heads' weights and a tile of
+per-sample activations in shared memory; K4 runs one block per (sample
+tile, head) and keeps that head's weights twice (values and gradient
+accumulators) and the tile's activations and cotangents. Both must fit the
+H100's 227 KB per block at their smallest tile (32 samples):
+:func:`fused_tile` gives K3's tile and :func:`bwd_launch_shape` K4's
+(tile, threads, shared memory), and each raises ValueError naming the
+limit. The last layer must have width 1 and
+there may be at most 16 layers. The JAX limits ``k * hidden <= 256`` and
+``k <= 9`` came from TPU VMEM and the 128-lane row and do not apply.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -44,6 +46,9 @@ from . import _cuda
 from ..models.module import _tanh_precise as _act
 
 __all__ = [
+    "BwdShape",
+    "bwd_launch_shape",
+    "bwd_resident_blocks",
     "eigen_loss_from_stats",
     "fused_tile",
     "params_t_of",
@@ -55,10 +60,23 @@ __all__ = [
 
 #: shared memory one block may use on an H100 (bytes)
 SMEM_LIMIT = 232_448
-#: sample tiles tried, largest first (one block per tile, one thread per
+#: K3 sample tiles tried, largest first (one block per tile, one thread per
 #: sample)
 TILES = (128, 64, 32)
+#: K4 sample tiles tried, largest first (one block per tile and head)
+BWD_TILES = (64, 32)
+#: K4 threads per sample
+BWD_THREADS_PER_SAMPLE = 4
 MAX_LAYERS = 16
+# one H100 SM: shared memory, what the runtime reserves of it per block,
+# threads, blocks and registers; K4's __launch_bounds__ (6 blocks of 128 or
+# 3 of 256 threads) cap a thread at 80 registers
+SM_SMEM = 233_472
+SM_SMEM_PER_BLOCK = 1024
+SM_THREADS = 2048
+SM_BLOCKS = 32
+SM_REGISTERS = 65_536
+BWD_REGISTERS = 80
 
 
 def stats_layout(k: int):
@@ -86,21 +104,19 @@ def stats_smem_bytes(dims: Sequence[int], k: int, tile: int,
     """Dynamic shared memory of one K3 (``backward=False``) or K4 block, in
     the layout of ``csrc/fused_eigen.cu``."""
     P = tile + 1
-    n_params = _n_params(dims, k)
     n_stats, _ = stats_layout(k)
     hidden = list(dims[1:-1])
-    common = 2 * k * tile + 2 * tile + dims[0] * P
     if backward:
         hid_rows = sum(hidden)
-        floats = 2 * n_params + n_stats + common + (2 * hid_rows + 1) * P
+        n_head = _n_params(dims, 1)
+        floats = 2 * n_head + tile + (dims[0] + 2 * hid_rows + 2) * P
     else:
-        floats = n_params + common + 2 * max(hidden, default=0) * P
+        floats = (_n_params(dims, k) + 2 * k * tile + 2 * tile + dims[0] * P
+                  + 2 * max(hidden, default=0) * P)
     return 4 * floats
 
 
-def fused_tile(dims: Sequence[int], k: int) -> int:
-    """Largest sample tile whose K3 and K4 blocks fit in shared memory;
-    raises ValueError for models the CUDA kernels do not take."""
+def _check_dims(dims) -> Tuple[int, ...]:
     dims = tuple(int(d) for d in dims)
     if dims[-1] != 1:
         raise ValueError(f"the fused step needs scalar heads, got dims {dims}")
@@ -109,16 +125,61 @@ def fused_tile(dims: Sequence[int], k: int) -> int:
             f"the fused step takes 1 to {MAX_LAYERS} layers, got "
             f"{len(dims) - 1}"
         )
-    for tile in TILES:
-        if stats_smem_bytes(dims, k, tile, backward=True) <= SMEM_LIMIT:
-            return tile
-    need = stats_smem_bytes(dims, k, TILES[-1], backward=True)
-    raise ValueError(
-        f"the fused step's backward block needs {need} bytes of shared "
+    return dims
+
+
+def _too_large(which: str, need: int, dims, k) -> ValueError:
+    return ValueError(
+        f"the fused step's {which} block needs {need} bytes of shared "
         f"memory for dims {dims} and k={k} (at a 32-sample tile), more "
         f"than the {SMEM_LIMIT} an H100 block has; use fused_step=False "
         "for this model"
     )
+
+
+class BwdShape(NamedTuple):
+    """Launch shape of K4: one block of ``threads`` per (``tile`` samples,
+    head), with ``smem_bytes`` of dynamic shared memory."""
+
+    tile: int
+    threads: int
+    smem_bytes: int
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks an H100 SM holds at once, by its limits on threads,
+        blocks, registers (at K4's cap) and shared memory."""
+        return min(SM_THREADS // self.threads, SM_BLOCKS,
+                   SM_REGISTERS // (self.threads * BWD_REGISTERS),
+                   SM_SMEM // (self.smem_bytes + SM_SMEM_PER_BLOCK))
+
+    @property
+    def warps_per_sm(self) -> int:
+        return self.blocks_per_sm * self.threads // 32
+
+
+def bwd_launch_shape(dims: Sequence[int], k: int) -> BwdShape:
+    """K4's launch shape: the largest tile of :data:`BWD_TILES` whose block
+    fits in shared memory; raises ValueError for models K4 does not take."""
+    dims = _check_dims(dims)
+    for tile in BWD_TILES:
+        smem = stats_smem_bytes(dims, k, tile, backward=True)
+        if smem <= SMEM_LIMIT:
+            return BwdShape(tile, BWD_THREADS_PER_SAMPLE * tile, smem)
+    raise _too_large("backward", smem, dims, k)
+
+
+def fused_tile(dims: Sequence[int], k: int) -> int:
+    """K3's sample tile: the largest of :data:`TILES` whose block fits in
+    shared memory; raises ValueError for models that K3 or K4 do not
+    take."""
+    dims = _check_dims(dims)
+    bwd_launch_shape(dims, k)
+    for tile in TILES:
+        smem = stats_smem_bytes(dims, k, tile, backward=False)
+        if smem <= SMEM_LIMIT:
+            return tile
+    raise _too_large("forward", smem, dims, k)
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +258,8 @@ def _dims_arg(dims):
 
 
 def stats_fwd_launch(flat, F, F_l, w, w_l, dims: Tuple[int, ...], k: int):
-    """Launch K3: flat params + data -> stats [n_stats] (float32)."""
+    """Launch K3: flat params + data -> (stats [n_stats], Y [2, k, B]), the
+    head outputs on F then F_l (float32)."""
     _check_data(F, F_l, w, w_l)
     if F.shape[1] != dims[0]:
         raise ValueError(f"F has width {F.shape[1]}, dims[0] is {dims[0]}")
@@ -209,59 +271,79 @@ def stats_fwd_launch(flat, F, F_l, w, w_l, dims: Tuple[int, ...], k: int):
     partials = torch.empty(nblocks * n_stats, dtype=torch.float32,
                            device=F.device)
     stats = torch.empty(n_stats, dtype=torch.float32, device=F.device)
+    Y = torch.empty((2, k, B), dtype=torch.float32, device=F.device)
     lib = _cuda.library("fused_eigen")
     err = lib.cvf_stats_fwd(
         flat.data_ptr(), F.data_ptr(), F_l.data_ptr(), w.data_ptr(),
-        w_l.data_ptr(), partials.data_ptr(), stats.data_ptr(),
+        w_l.data_ptr(), partials.data_ptr(), stats.data_ptr(), Y.data_ptr(),
         _dims_arg(dims), len(dims) - 1, k, B, tile,
         stats_smem_bytes(dims, k, tile, backward=False),
         _cuda.stream_handle(),
     )
     _cuda.check(err, "cvf_stats_fwd")
     _cuda.LAUNCHES["stats_fwd"] += 1
-    return stats
+    return stats, Y
 
 
-def stats_bwd_launch(flat, F, F_l, w, w_l, d_stats,
+def stats_bwd_launch(flat, F, F_l, w, w_l, Y, d_stats,
                      dims: Tuple[int, ...], k: int):
-    """Launch K4: dL/dstats -> dL/d(flat params) (float32)."""
+    """Launch K4: dL/dstats and K3's head outputs Y [2, k, B] ->
+    dL/d(flat params) (float32)."""
     _check_data(F, F_l, w, w_l)
     _check_flat(flat, dims, k, F.device)
     n_stats, _ = stats_layout(k)
-    if (d_stats.device != F.device or d_stats.dtype != torch.float32
-            or tuple(d_stats.shape) != (n_stats,)
-            or not d_stats.is_contiguous()):
-        raise ValueError(f"d_stats must be a contiguous float32 [{n_stats}]")
-    tile = fused_tile(dims, k)
     B = F.shape[0]
-    nblocks = -(-B // tile)
+    for name, t, shape in (("Y", Y, (2, k, B)), ("d_stats", d_stats,
+                                                  (n_stats,))):
+        if (t.device != F.device or t.dtype != torch.float32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(
+                f"{name} must be a contiguous float32 {list(shape)} tensor on "
+                f"{F.device}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            )
+    shape = bwd_launch_shape(dims, k)
+    nblocks = -(-B // shape.tile)
     partials = torch.empty(nblocks * flat.shape[0], dtype=torch.float32,
                            device=F.device)
     grads = torch.empty_like(flat)
     lib = _cuda.library("fused_eigen")
     err = lib.cvf_stats_bwd(
         flat.data_ptr(), F.data_ptr(), F_l.data_ptr(), w.data_ptr(),
-        w_l.data_ptr(), d_stats.data_ptr(), partials.data_ptr(),
-        grads.data_ptr(), _dims_arg(dims), len(dims) - 1, k, B, tile,
-        stats_smem_bytes(dims, k, tile, backward=True),
-        _cuda.stream_handle(),
+        w_l.data_ptr(), Y.data_ptr(), d_stats.data_ptr(), partials.data_ptr(),
+        grads.data_ptr(), _dims_arg(dims), len(dims) - 1, k, B, shape.tile,
+        shape.smem_bytes, _cuda.stream_handle(),
     )
     _cuda.check(err, "cvf_stats_bwd")
     _cuda.LAUNCHES["stats_bwd"] += 1
     return grads
 
 
+def bwd_resident_blocks(dims: Tuple[int, ...], k: int) -> int:
+    """K4 blocks resident on one SM of the current card at the model's
+    launch shape, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    reports it."""
+    import ctypes
+
+    shape = bwd_launch_shape(dims, k)
+    out = ctypes.c_int(0)
+    err = _cuda.library("fused_eigen").cvf_stats_bwd_occupancy(
+        shape.tile, shape.smem_bytes, ctypes.byref(out))
+    _cuda.check(err, "cvf_stats_bwd_occupancy")
+    return out.value
+
+
 class _TransferStats(torch.autograd.Function):
     @staticmethod
     def forward(ctx, flat, F, F_l, w, w_l, dims, k):
-        ctx.save_for_backward(flat, F, F_l, w, w_l)
+        stats, Y = stats_fwd_launch(flat, F, F_l, w, w_l, dims, k)
+        ctx.save_for_backward(flat, F, F_l, w, w_l, Y)
         ctx.dims, ctx.k = dims, k
-        return stats_fwd_launch(flat, F, F_l, w, w_l, dims, k)
+        return stats
 
     @staticmethod
     def backward(ctx, d_stats):
-        flat, F, F_l, w, w_l = ctx.saved_tensors
-        g = stats_bwd_launch(flat, F, F_l, w, w_l, d_stats.contiguous(),
+        flat, F, F_l, w, w_l, Y = ctx.saved_tensors
+        g = stats_bwd_launch(flat, F, F_l, w, w_l, Y, d_stats.contiguous(),
                              ctx.dims, ctx.k)
         return g, None, None, None, None, None, None
 

@@ -15,9 +15,14 @@ from colvarsfinder_tpu_torch.models import EigenFunctions
 from colvarsfinder_tpu_torch.ops import _cuda
 from colvarsfinder_tpu_torch.ops.alignment import align_frames, kabsch_rotations_quat
 from colvarsfinder_tpu_torch.ops.fused_eigen import (
+    _mlp_heads,
+    bwd_launch_shape,
+    bwd_resident_blocks,
     eigen_loss_from_stats,
+    flatten_params,
     fused_tile,
     params_t_of,
+    stats_fwd_launch,
     transfer_stats,
     transfer_stats_reference,
 )
@@ -133,13 +138,16 @@ def _stats_inputs(dev, B, k, dims, seed=0):
     "B,k,dims",
     [(37, 1, [12, 10, 10, 1]), (3000, 3, [12, 10, 10, 1]),
      (20000, 2, [30, 20, 20, 20, 1]),
-     # past the JAX limits (k <= 9, k * hidden <= 256): a 32-sample tile
-     (500, 12, [30, 32, 32, 1])],
+     # one sample past a multiple of K4's 64-sample tile
+     (4 * 64 + 1, 2, [30, 20, 20, 20, 1]),
+     # past the JAX limits (k <= 9, k * hidden <= 256)
+     (500, 12, [30, 32, 32, 1]), (2 * 64 + 1, 12, [30, 32, 32, 1])],
 )
 def test_k3_k4_match_plain_and_repeat_bitwise(dev, B, k, dims):
     model, F, Fl, w, wl = _stats_inputs(dev, B, k, dims)
     eig_w = torch.linspace(1.0, 0.2, k, device=dev)
-    assert fused_tile(dims, k) == (32 if k == 12 else 128)
+    assert fused_tile(dims, k) == 128
+    assert bwd_launch_shape(dims, k).tile == 64
 
     def loss_of(stats_fn):
         stats = stats_fn(params_t_of(model), F, Fl, w, wl)
@@ -165,3 +173,18 @@ def test_k3_k4_match_plain_and_repeat_bitwise(dev, B, k, dims):
     torch.testing.assert_close(s1, s_ref, rtol=5e-6, atol=1e-4)
     for a, b in zip(g1, g_ref):
         torch.testing.assert_close(a, b, rtol=2e-3, atol=1e-3)
+
+
+def test_k3_head_outputs_and_k4_occupancy(dev):
+    dims, k = (30, 20, 20, 20, 1), 2
+    model, F, Fl, w, wl = _stats_inputs(dev, 20000, k, list(dims))
+    pt = params_t_of(model)
+    _, Y = stats_fwd_launch(flatten_params(pt).detach().contiguous(), F, Fl,
+                            w, wl, dims, k)
+    with torch.no_grad():
+        want = torch.stack([_mlp_heads(pt, F).T, _mlp_heads(pt, Fl).T])
+    # f32 FMA chains against cuBLAS: the CPU tests' model-forward bar, x10
+    torch.testing.assert_close(Y, want, atol=1e-5, rtol=0)
+    # the main path's model keeps at least 16 warps resident on each SM
+    shape = bwd_launch_shape(dims, k)
+    assert bwd_resident_blocks(dims, k) * shape.threads // 32 >= 16

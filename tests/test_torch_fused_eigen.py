@@ -111,11 +111,11 @@ def test_loss_from_stats_matches_jax_eigen_loss(k):
 
 
 def test_fused_tile_limits():
-    # the main path's model fits the largest tile
+    # K3's tile: the main path's model fits the largest
     assert tfe.fused_tile((30, 20, 20, 20, 1), 2) == 128
     # far past the JAX limits (k * hidden <= 256, k <= 9), still in shared
     # memory
-    assert tfe.fused_tile((30, 32, 32, 1), 12) == 32
+    assert tfe.fused_tile((30, 32, 32, 1), 12) == 128
     # what does not fit one block's 227 KB raises, naming the limit
     with pytest.raises(ValueError, match="shared memory"):
         tfe.fused_tile((30, 256, 256, 1), 2)
@@ -123,3 +123,32 @@ def test_fused_tile_limits():
         tfe.fused_tile((30, 20, 2), 2)
     with pytest.raises(ValueError, match="layers"):
         tfe.fused_tile((4,) + (4,) * 17 + (1,), 1)
+
+
+@pytest.mark.parametrize(
+    "dims,k,tile",
+    [((30, 20, 20, 20, 1), 2, 64), ((30, 32, 32, 1), 12, 64),
+     # a head of ~17k floats: its block fits only at the 32-sample tile
+     ((30, 110, 110, 1), 1, 32)],
+)
+def test_bwd_launch_shape(dims, k, tile):
+    shape = tfe.bwd_launch_shape(dims, k)
+    assert shape.tile == tile
+    assert shape.threads == tfe.BWD_THREADS_PER_SAMPLE * tile
+    assert shape.smem_bytes == tfe.stats_smem_bytes(dims, k, tile,
+                                                    backward=True)
+    assert shape.smem_bytes <= tfe.SMEM_LIMIT
+    assert shape.blocks_per_sm >= 1
+    if dims == (30, 20, 20, 20, 1):
+        # the main path's model: 3 blocks of 8 warps on each SM
+        assert shape.warps_per_sm >= 16
+
+
+def test_bwd_launch_shape_limits():
+    with pytest.raises(ValueError, match="shared memory"):
+        tfe.bwd_launch_shape((30, 256, 256, 1), 2)
+    with pytest.raises(ValueError, match="scalar heads"):
+        tfe.bwd_launch_shape((30, 20, 2), 2)
+    # K4 holds one head's weights, so its block does not grow with k
+    assert (tfe.bwd_launch_shape((30, 20, 1), 64)
+            == tfe.bwd_launch_shape((30, 20, 1), 1))

@@ -117,7 +117,8 @@ def test_wrappers_take_cpu_tensors_through_plain_versions():
     with pytest.raises(ValueError, match="CUDA"):
         tfe.stats_fwd_launch(flat, F, F, w, w, (6, 5, 1), 2)
     with pytest.raises(ValueError, match="CUDA"):
-        tfe.stats_bwd_launch(flat, F, F, w, w, torch.zeros(13), (6, 5, 1), 2)
+        tfe.stats_bwd_launch(flat, F, F, w, w, torch.zeros(2, 2, 11),
+                             torch.zeros(13), (6, 5, 1), 2)
     assert _cuda.launch_counts() == {k: 0 for k in _cuda.LAUNCHES}
 
 
