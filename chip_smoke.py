@@ -9,16 +9,17 @@ Phases (each raises on failure; nothing is caught):
    build of the CUDA kernels from ``colvarsfinder_tpu_torch/csrc``;
 2. kernels K1-K4 against their plain PyTorch versions on the card, at the
    main path's shapes (B = 20,000 frames of 10 atoms, dims [30,20,20,20,1],
-   k = 2), at a ragged B = 37 and at one sample past a multiple of K4's
-   tile (there with a seeded cotangent, see EDGE_B); K4 takes the head
+   k = 2), at a ragged B = 37 and at one sample past a multiple of K3's and
+   K4's tiles (there with a seeded cotangent, see EDGE_B); K4 takes the head
    outputs Y that K3 returns, Y is held against the plain head outputs, and
    K3/K4 must repeat bit for bit;
 3. each kernel's device time (CUDA events, median of 21 batches of
    back-to-back calls queued behind a device sleep) beside its bound
    (the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s) and
    its plain version's device time (the summed durations of its kernels
-   under torch.profiler); K3 + K4 beside their time before K4's redesign,
-   and K4's resident blocks and warps per SM;
+   under torch.profiler); K3 beside its time before its redesign, K3 + K4
+   beside their time before it, and each one's launch shape and resident
+   blocks and warps per SM;
 4. transfer-operator EigenFunctionTask training on data shaped like the
    repo's headline benchmark (120,000 frames, 10 atoms, lag 5, batch
    20,000, seed 0) with FusedAlignmentLayer and fused_step=True (K2, K3,
@@ -53,10 +54,12 @@ N_FRAMES, LAG, DT, BATCH = 120_000, 5, 0.002, 20_000
 ALPHA, EIG_W, LR, TEST_RATIO = 20.0, [1.0, 0.2], 0.002, 0.001
 EPOCHS, K1_EPOCHS = 30, 2
 RAGGED_B = 37
-# one sample past a multiple of K4's 64-sample tile
+# one sample past a multiple of K4's 64-sample tile, and of K3's 64- or
+# 32-sample tile
 EDGE_B = 4 * 64 + 1
-# K3 + K4 before K4's redesign (PERF.md, same card model)
-K3_K4_BEFORE_US = 452.6
+# K3, and K3 + K4, before K3's redesign (PERF.md, same card model)
+K3_BEFORE_US = 148.92
+K3_K4_BEFORE_US = 216.22
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 outside tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -192,6 +195,8 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
         bwd_resident_blocks,
         eigen_loss_from_stats,
         flatten_params,
+        fwd_launch_shape,
+        fwd_resident_blocks,
         params_t_of,
         stats_bwd_launch,
         stats_fwd_launch,
@@ -331,16 +336,21 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
                 f"{bound_ms * 1e3:7.3f} us ({bound_by}: "
                 f"{work[name][0] / 1e6:.2f} MB, {work[name][1] / 1e6:.1f} "
                 "MFLOP)")
-    k3_k4 = (results["stats_fwd"]["ms"] + results["stats_bwd"]["ms"]) * 1e3
-    resident = bwd_resident_blocks(DIMS, K)
-    log(f"  K3 {results['stats_fwd']['ms'] * 1e3:.2f} us + K4 "
-        f"{results['stats_bwd']['ms'] * 1e3:.2f} us = {k3_k4:.2f} us "
-        f"(before K4's redesign: {K3_K4_BEFORE_US} us)")
-    log(f"  K4 launch: tile {bwd.tile} samples x {K} heads, {bwd.threads} "
-        f"threads, {bwd.smem_bytes} B shared memory per block; resident per "
-        f"SM {resident} blocks = {resident * bwd.threads // 32} warps "
-        f"(cudaOccupancyMaxActiveBlocksPerMultiprocessor; "
-        f"{bwd.warps_per_sm} by the SM's limits)")
+    k3 = results["stats_fwd"]["ms"] * 1e3
+    k3_k4 = k3 + results["stats_bwd"]["ms"] * 1e3
+    log(f"  K3 {k3:.2f} us (before its redesign: {K3_BEFORE_US} us); K3 + K4 "
+        f"{k3_k4:.2f} us (before: {K3_K4_BEFORE_US} us)")
+    for name, shape, per, resident in (
+        ("K3", fwd_launch_shape(DIMS, K), "", fwd_resident_blocks(DIMS, K)),
+        ("K4", bwd, f" x {K} heads", bwd_resident_blocks(DIMS, K)),
+    ):
+        log(f"  {name} launch: tile {shape.tile} samples{per}, "
+            f"{shape.threads} threads, {shape.smem_bytes} B shared memory "
+            f"per block; resident per SM {resident} blocks = "
+            f"{resident * shape.threads // 32} warps "
+            "(cudaOccupancyMaxActiveBlocksPerMultiprocessor; "
+            f"{shape.blocks_per_sm} blocks = {shape.warps_per_sm} warps by "
+            "the SM's limits at the 80-register cap)")
     _cuda.reset_launch_counts()
     return results
 

@@ -28,8 +28,9 @@ from ..export import ColvarModel
 from ..models.eigen import EigenFunctions
 from ..ops.features import Identity, as_pp_layer
 from ..ops.fused_eigen import (
+    bwd_launch_shape,
     eigen_loss_from_stats,
-    fused_tile,
+    fwd_launch_shape,
     params_t_of,
     transfer_stats,
 )
@@ -46,7 +47,8 @@ class EigenFunctionTask(TrainingTask):
     and ``beta`` belong to the generator loss and are accepted but unused.
     ``fused_step=True`` runs each step through the fused stats kernels; it
     needs the 'tanh' activation, float32 and a model whose kernel blocks fit
-    in shared memory (:func:`..ops.fused_eigen.fused_tile`).
+    in shared memory (:func:`..ops.fused_eigen.fwd_launch_shape`,
+    :func:`..ops.fused_eigen.bwd_launch_shape`).
 
     Attributes:
         train_loss / test_loss: per-epoch mean metrics [epochs, 3 + k] with
@@ -131,7 +133,9 @@ class EigenFunctionTask(TrainingTask):
                     "fused_step computes in float32; with float64 use the "
                     "default step"
                 )
-            fused_tile(model.layer_dims, self.k)  # raises if too large
+            # each raises if the model's block is too large
+            fwd_launch_shape(model.layer_dims, self.k)
+            bwd_launch_shape(model.layer_dims, self.k)
 
         if self.verbose:
             print("\nEigenfunctions:\n", self.model, flush=True)

@@ -19,9 +19,26 @@
 // live in shared memory as [width][T + 1]: the +1 puts rows read at the same
 // sample column on different banks.
 //
-// K3. A block of T threads (T = 32, 64 or 128, the largest whose shared
-// memory fits) owns T consecutive samples, one thread per sample, with all
-// heads' weights in shared memory.
+// K3. What bounds it on the H100: at the main-path shapes it must do
+// ~227 MFLOP of float32 FMA (3.4 us at 67 TFLOP/s) and move ~5 MB (1.5 us),
+// so it is bound by operations. Its first design ran one thread per sample
+// through every head, one dependent shared-memory FMA chain per thread, the
+// failure described for K4 below. It now runs K4's hidden-layer forward:
+//   - one block per sample tile (T = 32 or 64), 4 threads per sample, all k
+//     heads inside the block, so the stats, which couple the heads (sc) and
+//     the passes (sd), are still reduced in the block; the heads run one
+//     after another through the hidden layers with rows_forward, a warp
+//     owning 4 rows over the tile, broadcast float4 weight loads;
+//   - the weights are copied by cp.async into a per-head layout (per layer
+//     and head W_t then b, as K4 keeps one head), in the same n_params floats;
+//   - the width-1 output layer splits each sample's sum over its 4 threads;
+//   - one input buffer and two ping-pong hidden buffers: the block is no
+//     larger than the first design's, so every model it took still fits at
+//     the 32-sample tile; F_l's copy into the input buffer starts as soon as
+//     the last head has read F, and overlaps that head's other layers.
+// At B = 20,000 the 64-sample tile gives 313 blocks, one wave of 3 per SM;
+// the busiest SMs are then bound by instruction issue, and the hidden
+// layers' tanh takes about a sixth of the kernel's time.
 //
 // K4. What bounds it on the H100: at the main-path shapes (B = 20,000,
 // dims [30,20,20,20,1], k = 2) it must do ~586 MFLOP of float32 FMA (8.7 us
@@ -77,37 +94,6 @@ struct Dims {
 __device__ __forceinline__ float act_tanh(float x) {
     const float xc = fminf(fmaxf(x, -20.0f), 20.0f);
     return 1.0f - 2.0f / (expf(2.0f * xc) + 1.0f);
-}
-
-// K3: forward of head kk for sample column s; the hidden layers alternate
-// between two buffers of maxH rows. Returns the scalar head output.
-__device__ float mlp_forward(const float* __restrict__ sW, const Dims& D,
-                             int k, int kk, const float* in, float* hid,
-                             int P, int s, int maxH) {
-    const float* src = in;
-    int woff = 0;
-    float y = 0.0f;
-    for (int l = 0; l < D.n; ++l) {
-        const int din = D.d[l], dout = D.d[l + 1];
-        const float* W = sW + woff + kk * din * dout;
-        const float* bias = sW + woff + k * din * dout + kk * dout;
-        if (l == D.n - 1) {
-            float acc = bias[0];
-            for (int i = 0; i < din; ++i) acc += src[i * P + s] * W[i];
-            y = acc;
-        } else {
-            float* dst = hid + (l & 1) * maxH * P;
-            for (int o = 0; o < dout; ++o) {
-                float acc = bias[o];
-                for (int i = 0; i < din; ++i)
-                    acc += src[i * P + s] * W[i * dout + o];
-                dst[o * P + s] = act_tanh(acc);
-            }
-            src = dst;
-        }
-        woff += k * din * dout + k * dout;
-    }
-    return y;
 }
 
 // asynchronous 4-byte global -> shared copy (cp.async, sm_80+); with valid
@@ -173,63 +159,11 @@ __device__ float integrand(int j, int t, const float* sY, const float* sw,
     return sY[i * T + t] * sY[jj * T + t] * wt;
 }
 
-__global__ void stats_fwd_kernel(const float* __restrict__ params,
-                                 const float* __restrict__ F,
-                                 const float* __restrict__ Fl,
-                                 const float* __restrict__ w,
-                                 const float* __restrict__ wl,
-                                 float* __restrict__ partials,
-                                 float* __restrict__ Y, Dims D, int k,
-                                 int n_params, int n_stats, int B, int maxH) {
-    extern __shared__ float smem[];
-    const int T = blockDim.x, P = T + 1, s = threadIdx.x;
-    const int d0 = D.d[0];
-    float* sW = smem;                // [n_params]
-    float* sY = sW + n_params;       // [2][k][T]: Y then Y_l
-    float* sw = sY + 2 * k * T;      // [T]
-    float* swl = sw + T;             // [T]
-    float* sIn = swl + T;            // [d0][P]
-    float* sH = sIn + d0 * P;        // [2][maxH][P]
-
-    for (int i = s; i < n_params; i += T) sW[i] = params[i];
-    const long b0 = (long)blockIdx.x * T;
-    const int rows = (long)B - b0 < T ? (int)((long)B - b0) : T;
-    sw[s] = s < rows ? w[b0 + s] : 0.0f;
-    swl[s] = s < rows ? wl[b0 + s] : 0.0f;
-
-    for (int pass = 0; pass < 2; ++pass) {
-        __syncthreads();
-        load_tile(pass ? Fl : F, sIn, b0, rows, d0, T, P);
-        cp_async_wait_all();
-        __syncthreads();
-        for (int kk = 0; kk < k; ++kk)
-            sY[(pass * k + kk) * T + s] =
-                mlp_forward(sW, D, k, kk, sIn, sH, P, s, maxH);
-    }
-    // the head outputs, for K4 (each thread writes its own sample's)
-    if (s < rows)
-        for (int pk = 0; pk < 2 * k; ++pk)
-            Y[(size_t)pk * B + b0 + s] = sY[pk * T + s];
-    __syncthreads();
-
-    // stat j is reduced by warp j % nwarps over the tile, in a fixed order
-    const int lane = s & 31, warp = s >> 5, nwarps = T >> 5;
-    for (int j = warp; j < n_stats; j += nwarps) {
-        float acc = 0.0f;
-        for (int t = lane; t < T; t += 32)
-            acc += integrand(j, t, sY, sw, swl, k, T);
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-            acc += __shfl_xor_sync(0xffffffffu, acc, off);
-        if (lane == 0) partials[(size_t)blockIdx.x * n_stats + j] = acc;
-    }
-}
-
 __device__ __forceinline__ float lane_of(const float4& v, int u) {
     return u == 0 ? v.x : u == 1 ? v.y : u == 2 ? v.z : v.w;
 }
 
-// K4 forward of one hidden layer over a tile of T = 32 * RT samples:
+// K3 and K4 forward of one hidden layer over a tile of T = 32 * RT samples:
 //   out[o][t] = tanh(b[o] + sum_i in[i][t] * W_t[i][o]),  W_t [din][dout]
 // then b [dout] at W. Warp w owns rows 4w.. (then 4(w + nwarps), ...), lane
 // the samples lane + 32 r; the sum over i runs in order. With VEC (dout % 4
@@ -279,6 +213,114 @@ __device__ __forceinline__ void rows_forward(const float* in, int din,
             for (int r = 0; r < RT; ++r)
                 out[(o0 + j) * P + lane + 32 * r] = act_tanh(acc[j][r]);
         }
+    }
+}
+
+// K3 output layer (width 1, no activation) over the tile:
+//   y[t] = b + sum_i in[i][t] W_t[i],  W_t [din] then b
+// The 4 threads of sample t = tid / 4 take the rows i = tid % 4 + 4m and
+// add their parts with two fixed shuffles.
+__device__ __forceinline__ void out_forward(const float* in, int din,
+                                            const float* W, float* y,
+                                            int P) {
+    const int t = threadIdx.x >> 2, q = threadIdx.x & 3;
+    float acc = 0.0f;
+    for (int i = q; i < din; i += 4) acc = fmaf(in[i * P + t], W[i], acc);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    if (q == 0) y[t] = W[din] + acc;
+}
+
+// K3: one block per sample tile of T = 32 * RT, all k heads, 4 * T
+// threads; shared memory in the order below (stats_smem_bytes in
+// ops/fused_eigen.py mirrors it)
+template <int RT>
+__global__ void __launch_bounds__(128 * RT, 6 / RT)
+stats_fwd_kernel(const float* __restrict__ params,
+                 const float* __restrict__ F, const float* __restrict__ Fl,
+                 const float* __restrict__ w, const float* __restrict__ wl,
+                 float* __restrict__ partials, float* __restrict__ Y, Dims D,
+                 int k, int n_params, int n_stats, int B, int maxH) {
+    constexpr int T = 32 * RT, P = T + 1;
+    extern __shared__ __align__(16) float smem[];
+    const int tid = threadIdx.x, NT = blockDim.x;
+    const int d0 = D.d[0], L = D.n;
+    // layer l's block has k * (d_l + 1) * d_{l+1} floats in params and in
+    // sW alike; in sW it holds per head W_t [d_l][d_{l+1}] then b [d_{l+1}]
+    float* sW = smem;                // [n_params]
+    float* sY = sW + n_params;       // [2][k][T]: Y then Y_l
+    float* sw = sY + 2 * k * T;      // [T]
+    float* swl = sw + T;             // [T]
+    float* sIn = swl + T;            // [d0][P]
+    float* sH = sIn + d0 * P;        // [2][maxH][P]
+
+    // the data first (from device memory), then the weights (from L2)
+    const long b0 = (long)blockIdx.x * T;
+    const int rows = (long)B - b0 < T ? (int)((long)B - b0) : T;
+    if (tid < T) {
+        const bool v = tid < rows;
+        cp_async_f32(sw + tid, v ? w + b0 + tid : w, v);
+        cp_async_f32(swl + tid, v ? wl + b0 + tid : wl, v);
+    }
+    load_tile(F, sIn, b0, rows, d0, T, P);
+    for (int l = 0, off = 0; l < L; ++l) {
+        const int dout = D.d[l + 1], nw = D.d[l] * dout, nh = nw + dout;
+        for (int kk = 0; kk < k; ++kk) {
+            const float* gW = params + off + kk * nw;
+            const float* gb = params + off + k * nw + kk * dout;
+            for (int e = tid; e < nh; e += NT)
+                cp_async_f32(sW + off + kk * nh + e,
+                             e < nw ? gW + e : gb + (e - nw), true);
+        }
+        off += k * nh;
+    }
+
+    for (int pass = 0; pass < 2; ++pass) {
+        cp_async_wait_all();
+        __syncthreads();
+        for (int kk = 0; kk < k; ++kk) {
+            // sIn is free once the last head of pass 0 has read it (in its
+            // first layer): F_l's copy then overlaps that head's other layers
+            const bool load_fl = pass == 0 && kk == k - 1;
+            const float* src = sIn;
+            int off = 0;
+            for (int l = 0; l + 1 < L; ++l) {
+                const int din = D.d[l], dout = D.d[l + 1];
+                const float* W = sW + off + kk * (din + 1) * dout;
+                float* dst = sH + (l & 1) * maxH * P;
+                if (dout % 4 == 0 && off % 4 == 0)
+                    rows_forward<RT, true>(src, din, W, dout, dst);
+                else
+                    rows_forward<RT, false>(src, din, W, dout, dst);
+                __syncthreads();
+                if (load_fl && l == 0) load_tile(Fl, sIn, b0, rows, d0, T, P);
+                src = dst;
+                off += k * (din + 1) * dout;
+            }
+            const int din = D.d[L - 1];
+            out_forward(src, din, sW + off + kk * (din + 1),
+                        sY + (pass * k + kk) * T, P);
+            __syncthreads();
+            if (load_fl && L == 1) load_tile(Fl, sIn, b0, rows, d0, T, P);
+        }
+    }
+
+    // the head outputs, for K4: one coalesced row per (pass, head)
+    for (int e = tid; e < 2 * k * T; e += NT) {
+        const int pk = e / T, t = e - pk * T;
+        if (t < rows) Y[(size_t)pk * B + b0 + t] = sY[e];
+    }
+
+    // stat j is reduced by warp j % nwarps over the tile, in a fixed order
+    const int lane = tid & 31, warp = tid >> 5, nwarps = NT >> 5;
+    for (int j = warp; j < n_stats; j += nwarps) {
+        float acc = 0.0f;
+        for (int t = lane; t < T; t += 32)
+            acc += integrand(j, t, sY, sw, swl, k, T);
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+            acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (lane == 0) partials[(size_t)blockIdx.x * n_stats + j] = acc;
     }
 }
 
@@ -604,13 +646,28 @@ int launch_bwd(const float* params, const float* F, const float* Fl,
 }
 
 template <int RT>
-int bwd_occupancy(int smem_bytes, int* blocks_per_sm) {
+int launch_fwd(const float* params, const float* F, const float* Fl,
+               const float* w, const float* wl, float* partials, float* Y,
+               const Dims& D, int k, int n_params, int n_stats, int B,
+               int maxH, int smem_bytes, cudaStream_t st) {
+    constexpr int T = 32 * RT;
     cudaError_t err = cudaFuncSetAttribute(
-        stats_bwd_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stats_fwd_kernel<RT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         smem_bytes);
     if (err != cudaSuccess) return (int)err;
+    stats_fwd_kernel<RT><<<(B + T - 1) / T, 4 * T, smem_bytes, st>>>(
+        params, F, Fl, w, wl, partials, Y, D, k, n_params, n_stats, B, maxH);
+    return (int)cudaGetLastError();
+}
+
+template <typename Kernel>
+int occupancy(Kernel kernel, int threads, int smem_bytes,
+              int* blocks_per_sm) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (err != cudaSuccess) return (int)err;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks_per_sm, stats_bwd_kernel<RT>, 128 * RT, smem_bytes);
+        blocks_per_sm, kernel, threads, smem_bytes);
 }
 
 }  // namespace
@@ -621,15 +678,15 @@ extern "C" {
 // success), or cudaErrorInvalidValue for dims or tiles the kernels do not
 // take. partials must hold ceil(B / tile) * n_stats (fwd) or * n_params
 // (bwd) floats; Y is [2, k, B]; smem_bytes is the dynamic shared memory of
-// the block, computed by the caller from the layouts above. K4's tile is 32
-// or 64 samples, with 4 threads per sample.
+// the block, computed by the caller from the layouts above. Both kernels
+// take a tile of 32 or 64 samples, with 4 threads per sample.
 
 int cvf_stats_fwd(const float* params, const float* F, const float* Fl,
                   const float* w, const float* wl, float* partials,
                   float* stats, float* Y, const int* dims, int n_layers,
                   int k, int B, int tile, int smem_bytes, void* stream) {
     Dims D;
-    if (!make_dims(dims, n_layers, &D) || B <= 0 || tile % 32 != 0)
+    if (!make_dims(dims, n_layers, &D) || B <= 0 || (tile != 32 && tile != 64))
         return (int)cudaErrorInvalidValue;
     int n_params = 0, maxH = 0;
     for (int l = 0; l < n_layers; ++l) {
@@ -637,19 +694,16 @@ int cvf_stats_fwd(const float* params, const float* F, const float* Fl,
         if (l < n_layers - 1 && D.d[l + 1] > maxH) maxH = D.d[l + 1];
     }
     const int n_stats = 2 + 5 * k + k * (k - 1) / 2;
-    cudaError_t err = cudaFuncSetAttribute(
-        stats_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    const int nblocks = (B + tile - 1) / tile;
     cudaStream_t st = (cudaStream_t)stream;
-    stats_fwd_kernel<<<nblocks, tile, smem_bytes, st>>>(
-        params, F, Fl, w, wl, partials, Y, D, k, n_params, n_stats, B, maxH);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    return launch_reduce(partials, stats, nblocks, n_stats, st);
+    const int err =
+        tile == 64
+            ? launch_fwd<2>(params, F, Fl, w, wl, partials, Y, D, k, n_params,
+                            n_stats, B, maxH, smem_bytes, st)
+            : launch_fwd<1>(params, F, Fl, w, wl, partials, Y, D, k, n_params,
+                            n_stats, B, maxH, smem_bytes, st);
+    if (err != 0) return err;
+    return launch_reduce(partials, stats, (B + tile - 1) / tile, n_stats, st);
 }
-
 int cvf_stats_bwd(const float* params, const float* F, const float* Fl,
                   const float* w, const float* wl, const float* Y,
                   const float* dstats, float* partials, float* grads,
@@ -674,11 +728,22 @@ int cvf_stats_bwd(const float* params, const float* F, const float* Fl,
     return launch_reduce(partials, grads, (B + tile - 1) / tile, n_params, st);
 }
 
-// K4 blocks resident on one SM at this tile and shared memory
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *blocks_per_sm.
+// K3 (fwd) or K4 (bwd) blocks resident on one SM at this tile and shared
+// memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// *blocks_per_sm.
+int cvf_stats_fwd_occupancy(int tile, int smem_bytes, int* blocks_per_sm) {
+    if (tile == 64)
+        return occupancy(stats_fwd_kernel<2>, 256, smem_bytes, blocks_per_sm);
+    if (tile == 32)
+        return occupancy(stats_fwd_kernel<1>, 128, smem_bytes, blocks_per_sm);
+    return (int)cudaErrorInvalidValue;
+}
+
 int cvf_stats_bwd_occupancy(int tile, int smem_bytes, int* blocks_per_sm) {
-    if (tile == 64) return bwd_occupancy<2>(smem_bytes, blocks_per_sm);
-    if (tile == 32) return bwd_occupancy<1>(smem_bytes, blocks_per_sm);
+    if (tile == 64)
+        return occupancy(stats_bwd_kernel<2>, 256, smem_bytes, blocks_per_sm);
+    if (tile == 32)
+        return occupancy(stats_bwd_kernel<1>, 128, smem_bytes, blocks_per_sm);
     return (int)cudaErrorInvalidValue;
 }
 

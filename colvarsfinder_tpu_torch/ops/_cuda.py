@@ -51,6 +51,7 @@ _SIGNATURES = {
     "fused_eigen": {
         "cvf_stats_fwd": (_P,) * 8 + (_P, _I, _I, _I, _I, _I, _P),
         "cvf_stats_bwd": (_P,) * 9 + (_P, _I, _I, _I, _I, _I, _P),
+        "cvf_stats_fwd_occupancy": (_I, _I, _P),
         "cvf_stats_bwd_occupancy": (_I, _I, _P),
     },
 }

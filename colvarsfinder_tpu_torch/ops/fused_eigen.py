@@ -24,14 +24,14 @@ The plain version of both kernels is :func:`transfer_stats_reference` with
 autograd; the wrapper takes it for CPU tensors and launches the kernels for
 CUDA tensors.
 
-Limits of the CUDA design. K3 keeps all heads' weights and a tile of
-per-sample activations in shared memory; K4 runs one block per (sample
-tile, head) and keeps that head's weights twice (values and gradient
-accumulators) and the tile's activations and cotangents. Both must fit the
-H100's 227 KB per block at their smallest tile (32 samples):
-:func:`fused_tile` gives K3's tile and :func:`bwd_launch_shape` K4's
-(tile, threads, shared memory), and each raises ValueError naming the
-limit. The last layer must have width 1 and
+Limits of the CUDA design. K3 runs one block per sample tile and keeps all
+heads' weights and the tile's inputs and two hidden layers in shared
+memory; K4 runs one block per (sample tile, head) and keeps that head's
+weights twice (values and gradient accumulators) and the tile's activations
+and cotangents. Both must fit the H100's 227 KB per block at their smallest
+tile (32 samples): :func:`fwd_launch_shape` and :func:`bwd_launch_shape`
+give each kernel's :class:`LaunchShape` (tile, threads, shared memory), and
+each raises ValueError naming the limit. The last layer must have width 1 and
 there may be at most 16 layers. The JAX limits ``k * hidden <= 256`` and
 ``k <= 9`` came from TPU VMEM and the 128-lane row and do not apply.
 """
@@ -46,11 +46,12 @@ from . import _cuda
 from ..models.module import _tanh_precise as _act
 
 __all__ = [
-    "BwdShape",
+    "LaunchShape",
     "bwd_launch_shape",
     "bwd_resident_blocks",
     "eigen_loss_from_stats",
-    "fused_tile",
+    "fwd_launch_shape",
+    "fwd_resident_blocks",
     "params_t_of",
     "stats_layout",
     "stats_smem_bytes",
@@ -60,23 +61,21 @@ __all__ = [
 
 #: shared memory one block may use on an H100 (bytes)
 SMEM_LIMIT = 232_448
-#: K3 sample tiles tried, largest first (one block per tile, one thread per
-#: sample)
-TILES = (128, 64, 32)
-#: K4 sample tiles tried, largest first (one block per tile and head)
-BWD_TILES = (64, 32)
-#: K4 threads per sample
-BWD_THREADS_PER_SAMPLE = 4
+#: sample tiles K3 and K4 try, largest first (the faster for both at the
+#: main path's shapes); K3 runs one block per tile, K4 one per tile and head
+TILES = (64, 32)
+#: threads per sample of K3 and K4
+THREADS_PER_SAMPLE = 4
 MAX_LAYERS = 16
 # one H100 SM: shared memory, what the runtime reserves of it per block,
-# threads, blocks and registers; K4's __launch_bounds__ (6 blocks of 128 or
-# 3 of 256 threads) cap a thread at 80 registers
+# threads, blocks and registers; the kernels' __launch_bounds__ (6 blocks of
+# 128 or 3 of 256 threads) cap a thread at 80 registers
 SM_SMEM = 233_472
 SM_SMEM_PER_BLOCK = 1024
 SM_THREADS = 2048
 SM_BLOCKS = 32
 SM_REGISTERS = 65_536
-BWD_REGISTERS = 80
+MAX_REGISTERS = 80
 
 
 def stats_layout(k: int):
@@ -137,9 +136,10 @@ def _too_large(which: str, need: int, dims, k) -> ValueError:
     )
 
 
-class BwdShape(NamedTuple):
-    """Launch shape of K4: one block of ``threads`` per (``tile`` samples,
-    head), with ``smem_bytes`` of dynamic shared memory."""
+class LaunchShape(NamedTuple):
+    """Launch shape of K3 or K4: one block of ``threads`` per ``tile``
+    samples (K4: per tile and head), with ``smem_bytes`` of dynamic shared
+    memory."""
 
     tile: int
     threads: int
@@ -148,9 +148,10 @@ class BwdShape(NamedTuple):
     @property
     def blocks_per_sm(self) -> int:
         """Blocks an H100 SM holds at once, by its limits on threads,
-        blocks, registers (at K4's cap) and shared memory."""
+        blocks, registers (at the kernels' cap, so the kernel may fit more)
+        and shared memory."""
         return min(SM_THREADS // self.threads, SM_BLOCKS,
-                   SM_REGISTERS // (self.threads * BWD_REGISTERS),
+                   SM_REGISTERS // (self.threads * MAX_REGISTERS),
                    SM_SMEM // (self.smem_bytes + SM_SMEM_PER_BLOCK))
 
     @property
@@ -158,28 +159,25 @@ class BwdShape(NamedTuple):
         return self.blocks_per_sm * self.threads // 32
 
 
-def bwd_launch_shape(dims: Sequence[int], k: int) -> BwdShape:
-    """K4's launch shape: the largest tile of :data:`BWD_TILES` whose block
-    fits in shared memory; raises ValueError for models K4 does not take."""
+def _launch_shape(dims, k, backward) -> LaunchShape:
     dims = _check_dims(dims)
-    for tile in BWD_TILES:
-        smem = stats_smem_bytes(dims, k, tile, backward=True)
-        if smem <= SMEM_LIMIT:
-            return BwdShape(tile, BWD_THREADS_PER_SAMPLE * tile, smem)
-    raise _too_large("backward", smem, dims, k)
-
-
-def fused_tile(dims: Sequence[int], k: int) -> int:
-    """K3's sample tile: the largest of :data:`TILES` whose block fits in
-    shared memory; raises ValueError for models that K3 or K4 do not
-    take."""
-    dims = _check_dims(dims)
-    bwd_launch_shape(dims, k)
     for tile in TILES:
-        smem = stats_smem_bytes(dims, k, tile, backward=False)
+        smem = stats_smem_bytes(dims, k, tile, backward=backward)
         if smem <= SMEM_LIMIT:
-            return tile
-    raise _too_large("forward", smem, dims, k)
+            return LaunchShape(tile, THREADS_PER_SAMPLE * tile, smem)
+    raise _too_large("backward" if backward else "forward", smem, dims, k)
+
+
+def fwd_launch_shape(dims: Sequence[int], k: int) -> LaunchShape:
+    """K3's launch shape: the largest tile of :data:`TILES` whose block
+    fits in shared memory; raises ValueError for models K3 does not take."""
+    return _launch_shape(dims, k, backward=False)
+
+
+def bwd_launch_shape(dims: Sequence[int], k: int) -> LaunchShape:
+    """K4's launch shape: the largest tile of :data:`TILES` whose block
+    fits in shared memory; raises ValueError for models K4 does not take."""
+    return _launch_shape(dims, k, backward=True)
 
 
 # ---------------------------------------------------------------------------
@@ -264,10 +262,10 @@ def stats_fwd_launch(flat, F, F_l, w, w_l, dims: Tuple[int, ...], k: int):
     if F.shape[1] != dims[0]:
         raise ValueError(f"F has width {F.shape[1]}, dims[0] is {dims[0]}")
     _check_flat(flat, dims, k, F.device)
-    tile = fused_tile(dims, k)
+    shape = fwd_launch_shape(dims, k)
     B = F.shape[0]
     n_stats, _ = stats_layout(k)
-    nblocks = -(-B // tile)
+    nblocks = -(-B // shape.tile)
     partials = torch.empty(nblocks * n_stats, dtype=torch.float32,
                            device=F.device)
     stats = torch.empty(n_stats, dtype=torch.float32, device=F.device)
@@ -276,8 +274,7 @@ def stats_fwd_launch(flat, F, F_l, w, w_l, dims: Tuple[int, ...], k: int):
     err = lib.cvf_stats_fwd(
         flat.data_ptr(), F.data_ptr(), F_l.data_ptr(), w.data_ptr(),
         w_l.data_ptr(), partials.data_ptr(), stats.data_ptr(), Y.data_ptr(),
-        _dims_arg(dims), len(dims) - 1, k, B, tile,
-        stats_smem_bytes(dims, k, tile, backward=False),
+        _dims_arg(dims), len(dims) - 1, k, B, shape.tile, shape.smem_bytes,
         _cuda.stream_handle(),
     )
     _cuda.check(err, "cvf_stats_fwd")
@@ -318,18 +315,30 @@ def stats_bwd_launch(flat, F, F_l, w, w_l, Y, d_stats,
     return grads
 
 
+def _resident_blocks(entry: str, shape: LaunchShape) -> int:
+    import ctypes
+
+    out = ctypes.c_int(0)
+    err = getattr(_cuda.library("fused_eigen"), entry)(
+        shape.tile, shape.smem_bytes, ctypes.byref(out))
+    _cuda.check(err, entry)
+    return out.value
+
+
+def fwd_resident_blocks(dims: Tuple[int, ...], k: int) -> int:
+    """K3 blocks resident on one SM of the current card at the model's
+    launch shape, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+    reports it."""
+    return _resident_blocks("cvf_stats_fwd_occupancy",
+                            fwd_launch_shape(dims, k))
+
+
 def bwd_resident_blocks(dims: Tuple[int, ...], k: int) -> int:
     """K4 blocks resident on one SM of the current card at the model's
     launch shape, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
     reports it."""
-    import ctypes
-
-    shape = bwd_launch_shape(dims, k)
-    out = ctypes.c_int(0)
-    err = _cuda.library("fused_eigen").cvf_stats_bwd_occupancy(
-        shape.tile, shape.smem_bytes, ctypes.byref(out))
-    _cuda.check(err, "cvf_stats_bwd_occupancy")
-    return out.value
+    return _resident_blocks("cvf_stats_bwd_occupancy",
+                            bwd_launch_shape(dims, k))
 
 
 class _TransferStats(torch.autograd.Function):

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Where K4's time goes: phase ablation and batch sweep on one NVIDIA card.
+"""Where K3's and K4's time goes: phase ablation, K3's tiles and K4's batch
+sweep on one NVIDIA card.
 
     python3 scripts/k4_ablation.py
 
 No profiler that reads hardware counters is assumed. Instead the script
-builds ``colvarsfinder_tpu_torch/csrc/fused_eigen.cu`` as it is and three
-copies with one phase of K4 removed (the hidden-layer forward, the cotangent
-backprop, the dW contraction), and times each at the main path's shapes
+builds ``colvarsfinder_tpu_torch/csrc/fused_eigen.cu`` as it is and copies
+with one phase removed (K4's hidden-layer forward, cotangent backprop and dW
+contraction; K3's hidden-layer forward, the tanh of its hidden layers, its
+output layer, its in-block stats, and its whole body, which leaves the
+launch and the reduction launch), and times each at the main path's shapes
 (B = 20,000, dims [30,20,20,20,1], k = 2). The time a phase's removal saves
-is that phase's share. The copies compute wrong gradients; only their time
-is read. It then times the real kernel over batch sizes around one and two
-waves of resident blocks. Device times are CUDA events, as in chip_smoke.py.
+is that phase's share. The copies compute wrong results; only their time is
+read. It times K3 at each of its tiles, then K4 over batch
+sizes around one and two waves of resident blocks. Device times are CUDA
+events, as in chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -32,7 +36,9 @@ from colvarsfinder_tpu_torch.models import EigenFunctions  # noqa: E402
 from colvarsfinder_tpu_torch.ops import _cuda  # noqa: E402
 from colvarsfinder_tpu_torch.ops import fused_eigen as fe  # noqa: E402
 
-# the loop headers that a removed phase runs zero times
+# the loop headers that a removed phase runs zero times, or the lines that
+# skip it (each occurs once in the source: K3's hidden-layer loop is written
+# apart from K4's)
 REMOVE = {
     "forward": ("for (int l = 0; l < L - 1; ++l) {",
                 "for (int l = 0; l < 0; ++l) {"),
@@ -40,7 +46,21 @@ REMOVE = {
                  "for (int l = L - 1; l >= L; --l) {"),
     "dW": ("for (int wt = tid >> 1; wt < n_tiles; wt += NT >> 1) {",
            "for (int wt = tid >> 1; wt < 0; wt += NT >> 1) {"),
+    "K3 forward": ("for (int l = 0; l + 1 < L; ++l) {",
+                   "for (int l = 0; l + 1 < 0; ++l) {"),
+    # in rows_forward, which K4 shares; only K3 is timed with this copy
+    "K3 tanh": ("out[(o0 + j) * P + lane + 32 * r] = act_tanh(acc[j][r]);",
+                "out[(o0 + j) * P + lane + 32 * r] = acc[j][r];"),
+    "K3 output layer": ("            out_forward(src, din,",
+                        "            if (din < 0) out_forward(src, din,"),
+    "K3 stats": ("for (int j = warp; j < n_stats; j += nwarps) {",
+                 "for (int j = warp; j < 0; j += nwarps) {"),
+    "K3 body": ("    float* sW = smem;                // [n_params]",
+                "    if (n_params > 0) return;\n"
+                "    float* sW = smem;                // [n_params]"),
 }
+K3_PHASES = ("K3 forward", "K3 tanh", "K3 output layer", "K3 stats",
+             "K3 body")
 
 
 def build(tmp: Path) -> dict:
@@ -53,7 +73,8 @@ def build(tmp: Path) -> dict:
             if text.count(old) != 1:
                 raise RuntimeError(f"{name}: loop header not found once")
             text = text.replace(old, new)
-        cu, so = tmp / f"{name}.cu", tmp / f"{name}.so"
+        stem = name.replace(" ", "_")
+        cu, so = tmp / f"{stem}.cu", tmp / f"{stem}.so"
         cu.write_text(text)
         procs[name] = (so, subprocess.Popen(
             [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o",
@@ -105,6 +126,26 @@ def launcher(lib, flat, data):
     return run
 
 
+def fwd_launcher(lib, flat, data, tile):
+    F, Fl, w, wl = data[:4]
+    B = F.shape[0]
+    n_stats = fe.stats_layout(cs.K)[0]
+    partials = torch.empty(-(-B // tile) * n_stats, device=flat.device)
+    stats = torch.empty(n_stats, device=flat.device)
+    Y = torch.empty((2, cs.K, B), device=flat.device)
+    smem = fe.stats_smem_bytes(cs.DIMS, cs.K, tile, backward=False)
+
+    def run():
+        err = lib.cvf_stats_fwd(
+            flat.data_ptr(), F.data_ptr(), Fl.data_ptr(), w.data_ptr(),
+            wl.data_ptr(), partials.data_ptr(), stats.data_ptr(),
+            Y.data_ptr(), fe._dims_arg(cs.DIMS), len(cs.DIMS) - 1, cs.K, B,
+            tile, smem, _cuda.stream_handle())
+        _cuda.check(err, "cvf_stats_fwd")
+
+    return run
+
+
 def k_blocks(B, shape):
     return -(-B // shape.tile) * cs.K
 
@@ -126,8 +167,24 @@ def main():
         full = cs.device_ms(launcher(libs["kernel"], flat, data)) * 1e3
         print(f"K4 at B={cs.BATCH}: {full:.2f} us", flush=True)
         for name in REMOVE:
+            if name in K3_PHASES:
+                continue
             us = cs.device_ms(launcher(libs[name], flat, data)) * 1e3
             print(f"  without the {name:8s}: {us:8.2f} us (the phase: "
+                  f"{full - us:6.2f} us)", flush=True)
+        fwd = fe.fwd_launch_shape(cs.DIMS, cs.K)
+        for tile in sorted(fe.TILES, reverse=True):
+            us = cs.device_ms(fwd_launcher(libs["kernel"], flat, data,
+                                           tile)) * 1e3
+            print(f"K3 at B={cs.BATCH}, tile {tile:2d} ({-(-cs.BATCH // tile)}"
+                  f" blocks of {fe.THREADS_PER_SAMPLE * tile} threads): "
+                  f"{us:.2f} us", flush=True)
+            if tile == fwd.tile:
+                full = us
+        for name in K3_PHASES:
+            us = cs.device_ms(fwd_launcher(libs[name], flat, data,
+                                           fwd.tile)) * 1e3
+            print(f"  without the {name:15s}: {us:8.2f} us (the phase: "
                   f"{full - us:6.2f} us)", flush=True)
         shape = fe.bwd_launch_shape(cs.DIMS, cs.K)
         slots = torch.cuda.get_device_properties(0).multi_processor_count * (

@@ -20,7 +20,8 @@ from colvarsfinder_tpu_torch.ops.fused_eigen import (
     bwd_resident_blocks,
     eigen_loss_from_stats,
     flatten_params,
-    fused_tile,
+    fwd_launch_shape,
+    fwd_resident_blocks,
     params_t_of,
     stats_fwd_launch,
     transfer_stats,
@@ -138,15 +139,18 @@ def _stats_inputs(dev, B, k, dims, seed=0):
     "B,k,dims",
     [(37, 1, [12, 10, 10, 1]), (3000, 3, [12, 10, 10, 1]),
      (20000, 2, [30, 20, 20, 20, 1]),
-     # one sample past a multiple of K4's 64-sample tile
+     # one sample past a multiple of K4's 64-sample tile (and of K3's 64-
+     # or 32-sample tile)
      (4 * 64 + 1, 2, [30, 20, 20, 20, 1]),
      # past the JAX limits (k <= 9, k * hidden <= 256)
-     (500, 12, [30, 32, 32, 1]), (2 * 64 + 1, 12, [30, 32, 32, 1])],
+     (500, 12, [30, 32, 32, 1]), (2 * 64 + 1, 12, [30, 32, 32, 1]),
+     # no hidden layer: K3's output layer reads the input tile itself
+     (3 * 64 + 1, 2, [12, 1])],
 )
 def test_k3_k4_match_plain_and_repeat_bitwise(dev, B, k, dims):
     model, F, Fl, w, wl = _stats_inputs(dev, B, k, dims)
     eig_w = torch.linspace(1.0, 0.2, k, device=dev)
-    assert fused_tile(dims, k) == 128
+    assert fwd_launch_shape(dims, k).tile == 64
     assert bwd_launch_shape(dims, k).tile == 64
 
     def loss_of(stats_fn):
@@ -176,6 +180,8 @@ def test_k3_k4_match_plain_and_repeat_bitwise(dev, B, k, dims):
 
 
 def test_k3_head_outputs_and_k4_occupancy(dev):
+    """K3's head outputs against the plain heads, and the resident blocks
+    of K3 and K4 on the card against the launch-shape helpers."""
     dims, k = (30, 20, 20, 20, 1), 2
     model, F, Fl, w, wl = _stats_inputs(dev, 20000, k, list(dims))
     pt = params_t_of(model)
@@ -188,3 +194,11 @@ def test_k3_head_outputs_and_k4_occupancy(dev):
     # the main path's model keeps at least 16 warps resident on each SM
     shape = bwd_launch_shape(dims, k)
     assert bwd_resident_blocks(dims, k) * shape.threads // 32 >= 16
+    # K3: the helper's arithmetic takes the 80-register cap of the launch
+    # bounds, so the card holds at least as many blocks; at the main path's
+    # shapes B = 20,000 is one wave of them on the card's SMs
+    fwd = fwd_launch_shape(dims, k)
+    resident = fwd_resident_blocks(dims, k)
+    assert resident >= fwd.blocks_per_sm
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert resident * sms * fwd.tile >= 20000

@@ -110,19 +110,63 @@ def test_loss_from_stats_matches_jax_eigen_loss(k):
     np.testing.assert_array_equal(cvec_t.numpy(), np.asarray(aux.cvec))
 
 
-def test_fused_tile_limits():
-    # K3's tile: the main path's model fits the largest
-    assert tfe.fused_tile((30, 20, 20, 20, 1), 2) == 128
-    # far past the JAX limits (k * hidden <= 256, k <= 9), still in shared
-    # memory
-    assert tfe.fused_tile((30, 32, 32, 1), 12) == 128
+def _old_k3_smem(dims, k, tile):
+    """K3's shared memory per block as the one-thread-per-sample design
+    computed it (all heads' weights, Y, w, w_l, one input tile, two hidden
+    buffers), in bytes: the limit the redesign must not tighten."""
+    P = tile + 1
+    n_params = sum(k * a * b + k * b for a, b in zip(dims[:-1], dims[1:]))
+    return 4 * (n_params + 2 * k * tile + 2 * tile + dims[0] * P
+                + 2 * max(dims[1:-1], default=0) * P)
+
+
+@pytest.mark.parametrize(
+    "dims,k,tile",
+    [((30, 20, 20, 20, 1), 2, tfe.TILES[0]),
+     # far past the JAX limits (k * hidden <= 256, k <= 9)
+     ((30, 32, 32, 1), 12, tfe.TILES[0]),
+     # all eight heads' weights in one block: fits only at the 32-sample tile
+     ((30, 65, 65, 1), 8, 32)],
+)
+def test_fwd_launch_shape(dims, k, tile):
+    shape = tfe.fwd_launch_shape(dims, k)
+    assert shape.tile == tile
+    assert shape.threads == tfe.THREADS_PER_SAMPLE * tile
+    assert shape.smem_bytes == tfe.stats_smem_bytes(dims, k, tile,
+                                                    backward=False)
+    assert shape.smem_bytes <= tfe.SMEM_LIMIT
+    assert shape.blocks_per_sm >= 1
+    if dims == (30, 20, 20, 20, 1):
+        # the main path's model: 1,250 samples resident per SM, so
+        # B = 20,000 runs in one wave of blocks on 132 SMs
+        assert shape.blocks_per_sm * shape.tile * 132 >= 20000
+
+
+def test_fwd_launch_shape_limits():
     # what does not fit one block's 227 KB raises, naming the limit
     with pytest.raises(ValueError, match="shared memory"):
-        tfe.fused_tile((30, 256, 256, 1), 2)
+        tfe.fwd_launch_shape((30, 256, 256, 1), 2)
     with pytest.raises(ValueError, match="scalar heads"):
-        tfe.fused_tile((30, 20, 2), 2)
+        tfe.fwd_launch_shape((30, 20, 2), 2)
     with pytest.raises(ValueError, match="layers"):
-        tfe.fused_tile((4,) + (4,) * 17 + (1,), 1)
+        tfe.fwd_launch_shape((4,) + (4,) * 17 + (1,), 1)
+
+
+@pytest.mark.parametrize("k", [1, 8, 40])
+def test_fwd_launch_shape_keeps_every_model_k3_took(k):
+    # the widest [30, h, h, 1] model that the one-thread-per-sample K3 took
+    # (its block at the 32-sample tile within the limit) is still taken,
+    # and its block is no larger; one unit wider is refused by both
+    h = 1
+    while _old_k3_smem((30, h + 1, h + 1, 1), k, 32) <= tfe.SMEM_LIMIT:
+        h += 1
+    dims = (30, h, h, 1)
+    shape = tfe.fwd_launch_shape(dims, k)
+    assert (tfe.stats_smem_bytes(dims, k, 32, backward=False)
+            <= _old_k3_smem(dims, k, 32))
+    assert shape.smem_bytes <= tfe.SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        tfe.fwd_launch_shape((30, h + 1, h + 1, 1), k)
 
 
 @pytest.mark.parametrize(
@@ -134,7 +178,7 @@ def test_fused_tile_limits():
 def test_bwd_launch_shape(dims, k, tile):
     shape = tfe.bwd_launch_shape(dims, k)
     assert shape.tile == tile
-    assert shape.threads == tfe.BWD_THREADS_PER_SAMPLE * tile
+    assert shape.threads == tfe.THREADS_PER_SAMPLE * tile
     assert shape.smem_bytes == tfe.stats_smem_bytes(dims, k, tile,
                                                     backward=True)
     assert shape.smem_bytes <= tfe.SMEM_LIMIT
