@@ -12,20 +12,24 @@ Phases (each raises on failure; nothing is caught):
    k = 2), at a ragged B = 37 and at one sample past a multiple of K3's and
    K4's tiles (there with a seeded cotangent, see EDGE_B); K4 takes the head
    outputs Y that K3 returns, Y is held against the plain head outputs, and
-   K3/K4 must repeat bit for bit;
+   K3/K4 must repeat bit for bit; K2 also on frames of the dipeptide's 22
+   atoms with 10 unsorted align indices;
 3. each kernel's device time (CUDA events, median of 21 batches of
    back-to-back calls queued behind a device sleep) beside its bound
    (the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s) and
    its plain version's device time (the summed durations of its kernels
-   under torch.profiler); K3 beside its time before its redesign, K3 + K4
-   beside their time before it, and each one's launch shape and resident
-   blocks and warps per SM;
+   under torch.profiler); K2 and K3 beside their times before their
+   redesigns, K3 + K4 beside their time before K3's, K2's direct variant
+   (one thread per frame) at the same shapes, and the launch shape and
+   resident blocks and warps per SM of K2, K3 and K4;
 4. transfer-operator EigenFunctionTask training on data shaped like the
    repo's headline benchmark (120,000 frames, 10 atoms, lag 5, batch
    20,000, seed 0) with FusedAlignmentLayer and fused_step=True (K2, K3,
    K4), held against the plain-PyTorch step with AlignmentLayer
    (method='quaternion') on the card; then a short run through
-   AlignmentLayer(method='cuda') (K1);
+   AlignmentLayer(method='cuda') (K1); the plain run saves its model, and
+   the TorchScript CV it writes (``latest/scripted_cv_cpu.pt``) must load on
+   the CPU and agree with the trained CV model;
 5. steady-state training throughput of both steps, and the device's busy
    share over two more epochs of each under torch.profiler.
 
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -57,9 +62,13 @@ RAGGED_B = 37
 # one sample past a multiple of K4's 64-sample tile, and of K3's 64- or
 # 32-sample tile
 EDGE_B = 4 * 64 + 1
-# K3, and K3 + K4, before K3's redesign (PERF.md, same card model)
+# K3, and K3 + K4, before K3's redesign; K2 before its redesign (PERF.md,
+# same card model)
 K3_BEFORE_US = 148.92
 K3_K4_BEFORE_US = 216.22
+K2_BEFORE_US = 18.60
+# K2 on the dipeptide's atoms (examples/dipeptide/top.gro)
+DIPEPTIDE_ATOMS, DIPEPTIDE_ALIGN = 22, 10
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 outside tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -78,6 +87,9 @@ Y_TOL = dict(atol=1e-5, rtol=0.0)
 # fused step against plain step over the training curves (the JAX
 # package's fused-vs-plain bar)
 CURVE_RTOL = {"loss": 2e-3, "eig_1": 5e-3}
+# the saved TorchScript CV on the CPU against the trained CV model
+# (tests/test_torch_deploy.py's bar)
+SCRIPTED_ATOL = 2e-6
 
 KERNELS = {
     "kabsch_qcp": ("colvarsfinder_tpu_torch/csrc/kabsch.cu",
@@ -205,6 +217,9 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
         unflatten_grads,
     )
     from colvarsfinder_tpu_torch.ops.kabsch_cuda import (
+        AlignShape,
+        align_launch_shape,
+        align_resident_blocks,
         fused_align_launch,
         kabsch_qcp_launch,
     )
@@ -300,6 +315,8 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
 
         if not main:
             continue
+        direct_us = device_ms(lambda: fused_align_launch(
+            X, ref, idx32, AlignShape(0, 256, 0))) * 1e3
         # phase 3: device time beside the bound, at the main path's shapes
         hid = sum(DIMS[1:-1])
         fma = sum(a * b for a, b in zip(DIMS[:-1], DIMS[1:]))
@@ -336,10 +353,37 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
                 f"{bound_ms * 1e3:7.3f} us ({bound_by}: "
                 f"{work[name][0] / 1e6:.2f} MB, {work[name][1] / 1e6:.1f} "
                 "MFLOP)")
+    # K2 on frames of the dipeptide's atoms, align indices unsorted
+    rng = np.random.default_rng(DIPEPTIDE_ATOMS)
+    base = rng.standard_normal((DIPEPTIDE_ATOMS, 3))
+    x22 = torch.from_numpy((base + 0.3 * rng.standard_normal(
+        (BATCH, DIPEPTIDE_ATOMS, 3))).astype(np.float32)).to(dev)
+    i22_np = rng.permutation(DIPEPTIDE_ATOMS)[:DIPEPTIDE_ALIGN]
+    i22 = torch.from_numpy(i22_np).to(dev)
+    r22 = torch.from_numpy((base[i22_np] - base[i22_np].mean(0))
+                           .astype(np.float32)).to(dev)
+    got = fused_align_launch(x22, r22, i22.to(torch.int32))
+    want = align_frames(x22, r22, i22, method="quaternion")
+    torch.cuda.synchronize()
+    check_close("fused_align", got, want)
+    log(f"  fused_align  B={BATCH:6d}, {DIPEPTIDE_ATOMS} atoms, align "
+        f"indices {i22.tolist()}: max |kernel - plain| = "
+        f"{max_err(got, want):.3e} (tolerance {TOL['fused_align']})")
+
+    k2 = results["fused_align"]["ms"] * 1e3
     k3 = results["stats_fwd"]["ms"] * 1e3
     k3_k4 = k3 + results["stats_bwd"]["ms"] * 1e3
+    log(f"  K2 {k2:.2f} us (before its redesign: {K2_BEFORE_US} us; its "
+        f"direct variant in this run: {direct_us:.2f} us)")
     log(f"  K3 {k3:.2f} us (before its redesign: {K3_BEFORE_US} us); K3 + K4 "
         f"{k3_k4:.2f} us (before: {K3_K4_BEFORE_US} us)")
+    k2_shape = align_launch_shape(N_ATOMS, N_ATOMS)
+    k2_res = align_resident_blocks(k2_shape)
+    log(f"  K2 launch: tile {k2_shape.tile} frames, {k2_shape.threads} "
+        f"threads, {k2_shape.smem_bytes} B shared memory per block, "
+        f"{k2_shape.blocks(BATCH)} blocks; resident per SM {k2_res} blocks "
+        f"= {k2_res * k2_shape.threads // 32} warps "
+        "(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     for name, shape, per, resident in (
         ("K3", fwd_launch_shape(DIMS, K), "", fwd_resident_blocks(DIMS, K)),
         ("K4", bwd, f" x {K} heads", bwd_resident_blocks(DIMS, K)),
@@ -355,7 +399,8 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
     return results
 
 
-def make_task(cvf, traj_obj, ref, path, fused, method, epochs, **kw):
+def make_task(cvf, traj_obj, ref, path, fused, method, epochs,
+              save_every=0):
     if method == "fused":
         align = cvf.FusedAlignmentLayer(ref, list(range(N_ATOMS)))
     else:
@@ -368,10 +413,10 @@ def make_task(cvf, traj_obj, ref, path, fused, method, epochs, **kw):
     return cvf.EigenFunctionTask(
         traj_obj, pp, cvf.EigenFunctions(list(DIMS), K, seed=0), path,
         alpha=ALPHA, eig_weights=EIG_W, lag_tau=LAG * DT,
-        learning_rate=LR, save_model_every_step=0, k=K, batch_size=BATCH,
-        num_epochs=epochs, test_ratio=TEST_RATIO, verbose=False,
-        tensorboard=False, seed=0, debug_mode=False, fused_step=fused,
-        progress_interval=1, **kw,
+        learning_rate=LR, save_model_every_step=save_every, k=K,
+        batch_size=BATCH, num_epochs=epochs, test_ratio=TEST_RATIO,
+        verbose=False, tensorboard=False, seed=0, debug_mode=False,
+        fused_step=fused, progress_interval=1,
     )
 
 
@@ -392,8 +437,10 @@ def phase_training(ref, traj_np, w_np, cvf):
             ("plain", False, "quaternion", EPOCHS),
             ("k1", True, "cuda", K1_EPOCHS),
         ):
+            # the plain run saves its model once, after its last epoch
             task = make_task(cvf, traj_obj, ref, f"{tmp}/{label}", fused,
-                             method, epochs)
+                             method, epochs,
+                             save_every=epochs if label == "plain" else 0)
             torch.cuda.synchronize()
             _cuda.reset_launch_counts()
             t0 = time.perf_counter()
@@ -414,6 +461,8 @@ def phase_training(ref, traj_np, w_np, cvf):
             log(f"  {label:5s}: {epochs} epochs in {wall:.2f} s, loss "
                 f"{loss[0]:.5f} -> {loss[-1]:.5f}, eig_1 "
                 f"{task.train_loss[-1, 3]:.4f}; launches {counts}")
+            if label == "plain":
+                check_scripted_cv(task, f"{tmp}/{label}/latest", traj_np)
 
     # the schedule: per epoch nb_train steps and nb_test test batches; each
     # batch aligns X and X_l (K2 or K1) and computes the stats (K3); each
@@ -447,6 +496,29 @@ def phase_training(ref, traj_np, w_np, cvf):
     if out.shape != (1000, K) or not torch.isfinite(out).all():
         raise AssertionError(f"CV model output {tuple(out.shape)} not finite")
     return runs
+
+
+def check_scripted_cv(task, latest, traj_np, frames=100):
+    """The saved TorchScript CV, loaded on the CPU, against the trained CV
+    model on the card."""
+    names = sorted(os.listdir(latest))
+    log(f"  plain: latest/ holds {names}")
+    missing = {"cv_params.npz", "cv_spec.json", "cv_numpy_spec.json",
+               "cv_numpy.npz", "cv_native.bin", "scripted_cv_cpu.pt"}
+    missing -= set(names)
+    if missing:
+        raise AssertionError(f"save_model wrote no {sorted(missing)}")
+    scripted = torch.jit.load(f"{latest}/scripted_cv_cpu.pt",
+                              map_location="cpu")
+    x = torch.from_numpy(traj_np[:frames])
+    with torch.no_grad():
+        got = scripted(x)
+        want = task.colvar_model()(x.cuda()).cpu()
+    err = max_err(got, want)
+    log(f"  scripted_cv_cpu.pt on the CPU vs the trained CV model on the "
+        f"card, {frames} frames: max |difference| = {err:.3e} (tolerance "
+        f"{SCRIPTED_ATOL})")
+    torch.testing.assert_close(got, want, atol=SCRIPTED_ATOL, rtol=0)
 
 
 def phase_profile(runs, epochs=2):

@@ -10,7 +10,9 @@ tensors every kernel wrapper runs its plain PyTorch version.
 
 from . import config, core, models, ops, utils
 from .core import EigenFunctionTask, TrainingTask
-from .export import ColvarModel
+from .deploy import load_numpy_cv, save_numpy_cv
+from .deploy_torch import export_torchscript_cv, torchscript_from_numpy_cv
+from .export import ColvarModel, export_colvar
 from .models import EigenFunctions
 from .ops import (
     AlignmentLayer,
@@ -33,6 +35,11 @@ __all__ = [
     "TrainingTask",
     "WeightedTrajectory",
     "calc_weights",
+    "export_colvar",
+    "export_torchscript_cv",
+    "load_numpy_cv",
+    "save_numpy_cv",
+    "torchscript_from_numpy_cv",
     "config",
     "core",
     "models",

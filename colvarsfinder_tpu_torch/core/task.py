@@ -7,8 +7,8 @@ tensors and reach the host once per chunk of epochs, where the JAX package
 fetches them (``core/eigenfunction.py:942``).
 
 Not ported yet: streaming, the device mesh, ``shard_trajectory``, the
-compile cache, the ``unroll``/``prebatch`` switches and the CV export
-(ROADMAP.md queue 1, items 12, 13 and 15).
+compile cache, the ``unroll``/``prebatch`` switches and the compiled CV
+programs of ``export_cv=True`` (ROADMAP.md queue 1, items 12, 13 and 15).
 """
 
 from __future__ import annotations
@@ -23,6 +23,7 @@ import torch
 
 from .. import checkpoint
 from ..config import resolve_device
+from ..export import export_colvar
 from ..logging_utils import MetricsWriter
 
 __all__ = ["TrainingTask", "train_test_split"]
@@ -74,8 +75,10 @@ class TrainingTask(ABC):
         debug_mode: additionally snapshot a state dict per save epoch
         seed: seed of the train/test split (None draws one at construction)
         split_indices: optional (train_idx, test_idx) overriding the split
-        export_cv: writing CV deployment artifacts is not ported yet; True
-            raises
+        export_cv: also write the JAX package's compiled CV programs; not
+            ported yet, True raises. With False, ``save_model`` writes the
+            same CV artifacts as the JAX package's with False
+            (:func:`..export.export_colvar`)
         tensorboard: log scalars when tensorboardX is installed
         progress_interval: print progress at least every N epochs
     """
@@ -108,7 +111,8 @@ class TrainingTask(ABC):
     ):
         if export_cv:
             raise NotImplementedError(
-                "CV export is not ported yet: ROADMAP.md queue 1, item 12"
+                "the compiled CV programs of export_cv=True are not ported "
+                "yet: ROADMAP.md queue 1, item 12"
             )
         self.device = resolve_device(device)
         self.traj_obj = traj_obj
@@ -248,8 +252,13 @@ class TrainingTask(ABC):
 
     # ------------------------------------------------------------------
     def save_model(self, epoch: int, description: str = "latest"):
-        """Write ``model.pt`` (state dict), the per-CV text dumps and
-        ``train_state.pt`` under ``<model_path>/<description>``."""
+        """Write ``model.pt`` (state dict), the per-CV text dumps, the CV
+        deployment artifacts and ``train_state.pt`` under
+        ``<model_path>/<description>`` (``colvarsfinder_tpu/core/task.py:
+        867-920``). The CV artifacts are those of
+        :func:`..export.export_colvar`: ``cv_params.npz``, ``cv_spec.json``
+        and, where the CV has a spec, ``cv_numpy_spec.json``,
+        ``cv_numpy.npz``, ``cv_native.bin`` and ``scripted_cv_cpu.pt``."""
         if self.verbose:
             print(f"\n\nEpoch={epoch}:")
         if self.debug_mode:
@@ -263,6 +272,9 @@ class TrainingTask(ABC):
         checkpoint.save_cv_text(self.model, self.k, out_dir)
         if self.verbose:
             print(f"  trained model saved at:\n\t{model_filename}")
+        example = np.asarray(self.traj_obj.trajectory[:1], dtype=np.float32)
+        export_colvar(self.colvar_model(), example, out_dir,
+                      write_stablehlo=self.export_cv)
         self.save_training_state(epoch, f"{out_dir}/train_state.pt")
 
     def save_training_state(self, epoch: int, filename: str) -> None:

@@ -41,7 +41,8 @@ ACTIVATIONS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "tanh_native": torch.tanh,
     "relu": torch.relu,
     "elu": torch.nn.functional.elu,
-    "gelu": torch.nn.functional.gelu,
+    # the tanh approximation, jax.nn.gelu's default
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
     "sigmoid": torch.sigmoid,
     "celu": torch.nn.functional.celu,
     "softplus": torch.nn.functional.softplus,

@@ -46,7 +46,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "kabsch": {
         "cvf_kabsch_qcp": (_P, _P, _I, _P),
-        "cvf_fused_align": (_P, _P, _P, _P, _I, _I, _I, _P),
+        "cvf_fused_align": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+        "cvf_fused_align_occupancy": (_I, _P),
     },
     "fused_eigen": {
         "cvf_stats_fwd": (_P,) * 8 + (_P, _I, _I, _I, _I, _I, _P),

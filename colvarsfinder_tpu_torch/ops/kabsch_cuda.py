@@ -12,9 +12,14 @@ r"""CUDA Kabsch kernels (counterpart of ``colvarsfinder_tpu/ops/kabsch_pallas.py
   also the backward (``:276-286``).
 
 On the H100 both kernels move a few hundred bytes and do a few hundred
-flops per frame, one thread per frame with everything in registers; at the
-main path's B = 20,000 they are bound by launch latency, not by the
-card's memory rate or FMA rate (see ``csrc/kabsch.cu``).
+flops per frame; at the main path's B = 20,000 they are bound by launch
+latency and one dependent QCP chain per frame, not by the card's memory
+rate or FMA rate (see ``csrc/kabsch.cu``). K1 runs one thread per frame.
+K2 stages a tile of consecutive frames through shared memory with
+coalesced copies, one thread per frame solves, and the whole block rotates
+and stores the tile in order; frames too large for a tile (thousands of
+atoms) take K2's direct variant, one thread per frame from device memory.
+:func:`align_launch_shape` picks the variant.
 
 Each wrapper dispatches by the tensor's device: on the CPU it runs the
 plain version; on a CUDA tensor it launches the kernel or raises.
@@ -22,20 +27,82 @@ plain version; on a CUDA tensor it launches the kernel or raises.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 from torch import nn
 
 from . import _cuda
 from .alignment import align_frames, kabsch_rotations_quat, kabsch_rotations_svd
+from .fused_eigen import SMEM_LIMIT
 
 __all__ = [
+    "ALIGN_TILE",
+    "AlignShape",
     "FusedAlignmentLayer",
     "align_frames_fused_cuda",
+    "align_launch_shape",
+    "align_resident_blocks",
+    "align_smem_bytes",
     "kabsch_qcp_launch",
     "fused_align_launch",
     "kabsch_rotations_cuda",
 ]
+
+#: frames per block of K2's staged variant: at the main path's shapes 32
+#: frames (625 blocks, at most 5 on an SM) took 7.12 us on an H100 against
+#: 7.48 us for 64 (313 blocks, 3 on the busiest SM), 7.71 us for 16 and
+#: 9.07 us for 128 (scripts/k4_ablation.py k2)
+ALIGN_TILE = 32
+#: threads of a staged block (csrc/kabsch.cu kStagedThreads) and of a
+#: direct block (kThreads)
+STAGED_THREADS = 128
+DIRECT_THREADS = 256
+# floats per frame of the rotation slots (R and centroid; kRStride)
+_R_STRIDE = 13
+
+
+class AlignShape(NamedTuple):
+    """Launch shape of K2: ``tile`` frames per block of ``threads`` with
+    ``smem_bytes`` of dynamic shared memory (the staged variant), or
+    ``tile`` 0: the direct variant, one thread per frame."""
+
+    tile: int
+    threads: int
+    smem_bytes: int
+
+    def blocks(self, B: int) -> int:
+        per = self.tile or self.threads
+        return -(-B // per)
+
+
+def align_smem_bytes(N: int, m: int, tile: int) -> int:
+    """Shared memory of a staged K2 block: the tile at an odd stride per
+    frame, rotation slots, the reference and the indices."""
+    return 4 * (tile * ((3 * N) | 1) + tile * _R_STRIDE + 4 * m)
+
+
+def align_launch_shape(N: int, m: int) -> AlignShape:
+    """K2's launch shape for frames of N atoms with m align atoms: the
+    staged variant at :data:`ALIGN_TILE` frames where its block fits in
+    shared memory (up to ~580 atoms), else the direct variant."""
+    smem = align_smem_bytes(N, m, ALIGN_TILE)
+    if smem <= SMEM_LIMIT:
+        return AlignShape(ALIGN_TILE, STAGED_THREADS, smem)
+    return AlignShape(0, DIRECT_THREADS, 0)
+
+
+def align_resident_blocks(shape: AlignShape) -> int:
+    """Staged K2 blocks resident on one SM of the current card at
+    ``shape`` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+
+    out = ctypes.c_int(0)
+    err = _cuda.library("kabsch").cvf_fused_align_occupancy(
+        shape.smem_bytes, ctypes.byref(out))
+    _cuda.check(err, "cvf_fused_align_occupancy")
+    return out.value
 
 
 def _require(t: torch.Tensor, name: str, shape_ok: bool, dtype=torch.float32):
@@ -63,20 +130,25 @@ def kabsch_qcp_launch(C: torch.Tensor) -> torch.Tensor:
 
 
 def fused_align_launch(x: torch.Tensor, ref: torch.Tensor,
-                       idx: torch.Tensor) -> torch.Tensor:
+                       idx: torch.Tensor,
+                       shape: AlignShape | None = None) -> torch.Tensor:
     """Launch K2 on x [B, N, 3], reference [m, 3] and int32 indices [m]
-    (all CUDA, contiguous, on one device)."""
+    (all CUDA, contiguous, on one device), at ``shape`` (default:
+    :func:`align_launch_shape`)."""
     _require(x, "x", x.dim() == 3 and x.shape[2] == 3)
     m = ref.shape[0]
     _require(ref, "ref", ref.dim() == 2 and ref.shape[1] == 3 and m > 0)
     _require(idx, "idx", idx.shape == (m,), dtype=torch.int32)
     if not (x.device == ref.device == idx.device):
         raise ValueError("x, ref and idx must be on one device")
+    if shape is None:
+        shape = align_launch_shape(x.shape[1], m)
     out = torch.empty_like(x)
     lib = _cuda.library("kabsch")
     err = lib.cvf_fused_align(
         x.data_ptr(), ref.data_ptr(), idx.data_ptr(), out.data_ptr(),
-        x.shape[0], x.shape[1], m, _cuda.stream_handle(),
+        x.shape[0], x.shape[1], m, shape.tile, shape.smem_bytes,
+        _cuda.stream_handle(),
     )
     _cuda.check(err, "cvf_fused_align")
     _cuda.LAUNCHES["fused_align"] += 1

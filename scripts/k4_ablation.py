@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""Where K3's and K4's time goes: phase ablation, K3's tiles and K4's batch
-sweep on one NVIDIA card.
+"""Where K2's, K3's and K4's time goes: phase ablation, tiles and batch
+sweeps on one NVIDIA card.
 
-    python3 scripts/k4_ablation.py
+    python3 scripts/k4_ablation.py          # all sections
+    python3 scripts/k4_ablation.py k2       # K2 only
+    python3 scripts/k4_ablation.py k3k4     # K3 and K4 only
 
 No profiler that reads hardware counters is assumed. Instead the script
-builds ``colvarsfinder_tpu_torch/csrc/fused_eigen.cu`` as it is and copies
-with one phase removed (K4's hidden-layer forward, cotangent backprop and dW
-contraction; K3's hidden-layer forward, the tanh of its hidden layers, its
-output layer, its in-block stats, and its whole body, which leaves the
-launch and the reduction launch), and times each at the main path's shapes
-(B = 20,000, dims [30,20,20,20,1], k = 2). The time a phase's removal saves
-is that phase's share. The copies compute wrong results; only their time is
-read. It times K3 at each of its tiles, then K4 over batch
-sizes around one and two waves of resident blocks. Device times are CUDA
-events, as in chip_smoke.py.
+builds ``colvarsfinder_tpu_torch/csrc/fused_eigen.cu`` and ``kabsch.cu`` as
+they are and copies with one phase removed, and times each at the main
+path's shapes (B = 20,000; K3/K4: dims [30,20,20,20,1], k = 2; K2: 10 atoms,
+all align atoms). The time a phase's removal saves is that phase's share.
+The copies compute wrong results; only their time is read.
+
+* K4: its hidden-layer forward, cotangent backprop and dW contraction; then
+  K4 over batch sizes around one and two waves of resident blocks.
+* K3: its tiles; its hidden-layer forward, the tanh of its hidden layers,
+  its output layer, its in-block stats, and its whole body (which leaves
+  the launch and the reduction launch).
+* K2: the QCP solve (R taken as the normalized covariance, which keeps the
+  covariance), the QCP call replaced by the identity (the compiler then
+  drops the covariance too: the whole solve), and the whole body (the
+  launch alone); its tiles and its direct variant; a batch sweep.
+
+Device times are CUDA events, as in chip_smoke.py.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import chip_smoke as cs  # noqa: E402
 from colvarsfinder_tpu_torch.models import EigenFunctions  # noqa: E402
 from colvarsfinder_tpu_torch.ops import _cuda  # noqa: E402
 from colvarsfinder_tpu_torch.ops import fused_eigen as fe  # noqa: E402
+from colvarsfinder_tpu_torch.ops import kabsch_cuda as kc  # noqa: E402
 
 # the loop headers that a removed phase runs zero times, or the lines that
 # skip it (each occurs once in the source: K3's hidden-layer loop is written
@@ -61,19 +71,33 @@ REMOVE = {
 }
 K3_PHASES = ("K3 forward", "K3 tanh", "K3 output layer", "K3 stats",
              "K3 body")
+# K2 (csrc/kabsch.cu): the line in frame_rotation that solves QCP (K1
+# writes its own call as qcp_rotation(c, r)), and the staged kernel's last
+# line before its loads
+REMOVE_K2 = {
+    "QCP": ("        cvf::qcp_rotation(c, R);\n",
+            "        for (int i = 0; i < 9; ++i) R[i] = c[i];\n"),
+    "solve": ("        cvf::qcp_rotation(c, R);\n",
+              "        cvf::identity9(R);\n"),
+    "body": ("    const float* xt = x + b0 * W;\n",
+             "    const float* xt = x + b0 * W;\n    if (T > 0) return;\n"),
+}
 
 
-def build(tmp: Path) -> dict:
-    src = (_cuda.CSRC / "fused_eigen.cu").read_text()
+def build(tmp: Path, source="fused_eigen", removals=None) -> dict:
+    """The source as it is ("kernel") and one copy per removal, one nvcc
+    each, all started together."""
+    removals = REMOVE if removals is None else removals
+    src = (_cuda.CSRC / f"{source}.cu").read_text()
     procs = {}
-    for name in ("kernel", *REMOVE):
+    for name in ("kernel", *removals):
         text = src
-        if name in REMOVE:
-            old, new = REMOVE[name]
+        if name in removals:
+            old, new = removals[name]
             if text.count(old) != 1:
-                raise RuntimeError(f"{name}: loop header not found once")
+                raise RuntimeError(f"{name}: line to replace not found once")
             text = text.replace(old, new)
-        stem = name.replace(" ", "_")
+        stem = f"{source}_" + name.replace(" ", "_")
         cu, so = tmp / f"{stem}.cu", tmp / f"{stem}.so"
         cu.write_text(text)
         procs[name] = (so, subprocess.Popen(
@@ -86,7 +110,7 @@ def build(tmp: Path) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{out}")
         lib = ctypes.CDLL(str(so))
-        for fn, argtypes in _cuda._SIGNATURES["fused_eigen"].items():
+        for fn, argtypes in _cuda._SIGNATURES[source].items():
             getattr(lib, fn).argtypes = list(argtypes)
             getattr(lib, fn).restype = ctypes.c_int
         libs[name] = lib
@@ -150,15 +174,72 @@ def k_blocks(B, shape):
     return -(-B // shape.tile) * cs.K
 
 
+def align_launcher(lib, B, shape, dev, seed=0):
+    """K2 at the main path's frame: 10 atoms, all of them aligned."""
+    rng = np.random.default_rng(seed)
+    N = cs.N_ATOMS
+    x = torch.from_numpy(rng.standard_normal((B, N, 3)).astype(np.float32)
+                         ).to(dev)
+    ref = torch.from_numpy(rng.standard_normal((N, 3)).astype(np.float32)
+                           ).to(dev)
+    idx = torch.arange(N, dtype=torch.int32, device=dev)
+    out = torch.empty_like(x)
+
+    def run():
+        err = lib.cvf_fused_align(
+            x.data_ptr(), ref.data_ptr(), idx.data_ptr(), out.data_ptr(), B,
+            N, N, shape.tile, shape.smem_bytes, _cuda.stream_handle())
+        _cuda.check(err, "cvf_fused_align")
+
+    return run
+
+
+def k2_section(tmp: Path, dev):
+    libs = build(tmp, "kabsch", REMOVE_K2)
+    N = cs.N_ATOMS
+    main = kc.align_launch_shape(N, N)
+    full = cs.device_ms(align_launcher(libs["kernel"], cs.BATCH, main,
+                                       dev)) * 1e3
+    print(f"K2 at B={cs.BATCH}, N={N}, tile {main.tile} "
+          f"({main.blocks(cs.BATCH)} blocks of {main.threads} threads): "
+          f"{full:.2f} us", flush=True)
+    for name in REMOVE_K2:
+        us = cs.device_ms(align_launcher(libs[name], cs.BATCH, main,
+                                         dev)) * 1e3
+        print(f"  without the {name:5s}: {us:8.2f} us (the phase: "
+              f"{full - us:6.2f} us)", flush=True)
+    # each tile twice, in turns, to show the spread between repeats
+    for tile in (16, 32, 64, 128, 0, 128, 64, 32, 16):
+        shape = (kc.AlignShape(tile, kc.STAGED_THREADS,
+                               kc.align_smem_bytes(N, N, tile)) if tile
+                 else kc.AlignShape(0, kc.DIRECT_THREADS, 0))
+        us = cs.device_ms(align_launcher(libs["kernel"], cs.BATCH, shape,
+                                         dev)) * 1e3
+        what = f"tile {tile:3d}" if tile else "direct variant"
+        print(f"  {what:14s} ({shape.blocks(cs.BATCH):4d} blocks of "
+              f"{shape.threads} threads): {us:8.2f} us", flush=True)
+    for B in (1_000, 5_000, 10_000, 20_000, 40_000, 80_000, 160_000):
+        us = cs.device_ms(align_launcher(libs["kernel"], B, main, dev)) * 1e3
+        print(f"  B={B:7d} ({main.blocks(B):5d} blocks): {us:8.2f} us "
+              f"({2 * B * N * 3 * 4 / (us * 1e-6) / 1e12:.3f} TB/s of frames "
+              "in and out)", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("k4_ablation: needs an NVIDIA card")
+    sections = sys.argv[1:] or ["k3k4", "k2"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda")
+    if "k2" in sections:
+        with tempfile.TemporaryDirectory() as tmp:
+            k2_section(Path(tmp), dev)
+    if "k3k4" not in sections:
+        return
     model = EigenFunctions(cs.DIMS, cs.K, seed=0, device=dev)
     flat = fe.flatten_params(fe.params_t_of(model)).detach().contiguous()
     with tempfile.TemporaryDirectory() as tmp:

@@ -15,8 +15,10 @@ from colvarsfinder_tpu.ops.kabsch_pallas import kabsch_rotations_pallas
 from colvarsfinder_tpu_torch.ops import _cuda
 from colvarsfinder_tpu_torch.ops import alignment as tal
 from colvarsfinder_tpu_torch.ops.kabsch_cuda import (
+    AlignShape,
     FusedAlignmentLayer,
     align_frames_fused_cuda,
+    align_launch_shape,
     kabsch_rotations_cuda,
 )
 
@@ -107,6 +109,29 @@ def test_fused_layer_plain_path_matches_jax():
                                out_j[0], atol=2e-4)
     with pytest.raises(IndexError):
         layer(torch.zeros(2, 9, 3))
+
+
+@pytest.mark.parametrize(
+    "N,m,shape",
+    [
+        # staged: 32 frames per block of 128 threads, a frame at an odd
+        # stride (3N | 1 floats), 13 rotation floats per frame, the
+        # reference and the indices
+        (1, 1, AlignShape(32, 128, 4 * (32 * 3 + 32 * 13 + 4))),
+        (10, 10, AlignShape(32, 128, 4 * (32 * 31 + 32 * 13 + 40))),
+        (22, 10, AlignShape(32, 128, 4 * (32 * 67 + 32 * 13 + 40))),
+        # the largest frames whose tile fits one block's shared memory
+        (580, 100, AlignShape(32, 128, 4 * (32 * 1741 + 32 * 13 + 400))),
+        # past that the direct variant, one thread per frame
+        (600, 100, AlignShape(0, 256, 0)),
+        (5000, 100, AlignShape(0, 256, 0)),
+    ],
+)
+def test_k2_launch_shape(N, m, shape):
+    got = align_launch_shape(N, m)
+    assert got == shape
+    assert got.blocks(20000) == -(-20000 // (got.tile or 256))
+    assert got.smem_bytes <= 232_448
 
 
 @pytest.mark.parametrize("layer_cls", ["align", "fused"])

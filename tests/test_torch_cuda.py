@@ -28,7 +28,11 @@ from colvarsfinder_tpu_torch.ops.fused_eigen import (
     transfer_stats_reference,
 )
 from colvarsfinder_tpu_torch.ops.kabsch_cuda import (
+    AlignShape,
     FusedAlignmentLayer,
+    align_launch_shape,
+    align_resident_blocks,
+    align_smem_bytes,
     fused_align_launch,
     kabsch_qcp_launch,
     kabsch_rotations_cuda,
@@ -111,6 +115,77 @@ def test_k2_fused_align_matches_plain(dev, B):
     torch.testing.assert_close(out, out_ref, atol=2e-4, rtol=0)
     com = xt[1, idx].mean(0)
     torch.testing.assert_close(out[1], xt[1] - com, atol=1e-6, rtol=0)
+
+
+T = align_launch_shape(10, 10).tile
+DIRECT = AlignShape(0, 256, 0)
+
+
+def _k2_case(dev, B, N, m, order, seed):
+    x, ref, idx = _frames(B, N, m, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    if order == "unsorted":
+        idx = rng.permutation(idx)
+    elif order == "repeated":
+        idx = np.concatenate([idx[: m - 2], idx[:2]])[rng.permutation(m)]
+        ref = x[0, idx] - x[0, idx].mean(0)
+    x[0, idx] = x[0, idx[0]]  # coincident align atoms: identity rotation
+    return (torch.from_numpy(x).to(dev), torch.from_numpy(ref).to(dev),
+            torch.as_tensor(idx, device=dev))
+
+
+@pytest.mark.parametrize(
+    "B,N,m,order",
+    [(1, 10, 10, "sorted"), (37, 10, 10, "sorted"), (T - 1, 10, 10, "sorted"),
+     (T, 10, 6, "sorted"), (T + 1, 10, 6, "sorted"),
+     (20000, 10, 10, "sorted"), (20000, 10, 6, "sorted"),
+     (257, 10, 8, "repeated"),
+     # the dipeptide's atoms (examples/dipeptide/top.gro), 10 align atoms
+     (2000, 22, 10, "unsorted"),
+     # too large for a shared-memory tile: the direct variant
+     (300, 5000, 100, "unsorted")],
+)
+def test_k2_variants_match_plain_and_repeat_bitwise(dev, B, N, m, order):
+    x, ref, idx = _k2_case(dev, B, N, m, order, seed=B + N)
+    idx32 = idx.to(torch.int32)
+    shape = align_launch_shape(N, m)
+    assert (shape.tile == 0) == (N == 5000)
+    _cuda.reset_launch_counts()
+    out = fused_align_launch(x, ref, idx32)
+    again = fused_align_launch(x, ref, idx32)
+    direct = fused_align_launch(x, ref, idx32, DIRECT)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["fused_align"] == 3
+    # no atomics, a fixed order: two calls agree bit for bit, and both
+    # variants compute the same expressions in the same order
+    assert torch.equal(out, again)
+    assert torch.equal(out, direct)
+    want = align_frames(x, ref, idx, method="quaternion")
+    # the CPU tests' bar for the fused alignment
+    torch.testing.assert_close(out, want, atol=2e-4, rtol=0)
+    # the degenerate frame is the frame minus its centroid
+    torch.testing.assert_close(out[0], x[0] - x[0, idx].mean(0), atol=1e-6,
+                               rtol=0)
+
+
+@pytest.mark.parametrize("tile", [32, 64, 128])
+def test_k2_tiles_and_an_unaligned_input_equal_the_direct_variant(dev, tile):
+    B, N, m = 20000, 10, 10
+    x, ref, idx = _k2_case(dev, B, N, m, "unsorted", seed=tile)
+    idx32 = idx.to(torch.int32)
+    # a view 4 bytes into its buffer: no tile starts 16-byte aligned
+    buf = torch.empty(B * N * 3 + 1, device=dev)
+    xv = buf[1:].view(B, N, 3)
+    xv.copy_(x)
+    assert xv.data_ptr() % 16 == 4
+    shape = AlignShape(tile, 128, align_smem_bytes(N, m, tile))
+    out = fused_align_launch(xv, ref, idx32, shape)
+    want = fused_align_launch(x, ref, idx32, DIRECT)
+    torch.cuda.synchronize()
+    # the direct variant is held against the plain version above
+    assert torch.equal(out, want)
+    # the main path's launch shape keeps at least 8 warps on each SM
+    assert align_resident_blocks(align_launch_shape(N, m)) * 4 >= 8
 
 
 def test_k2_layer_gradient_is_plain_autograd(dev):
