@@ -10,24 +10,29 @@ Phases (each raises on failure; nothing is caught):
 2. kernels K1-K4 against their plain PyTorch versions on the card, at the
    main path's shapes (B = 20,000 frames of 10 atoms, dims [30,20,20,20,1],
    k = 2), at a ragged B = 37 and at one sample past a multiple of K3's and
-   K4's tiles (there with a seeded cotangent, see EDGE_B); K4 takes the head
-   outputs Y that K3 returns, Y is held against the plain head outputs, and
-   K3/K4 must repeat bit for bit; K2 also on frames of the dipeptide's 22
-   atoms with 10 unsorted align indices;
+   K4's tiles (there with a seeded cotangent, see EDGE_B; it is one frame
+   past a multiple of K1's tile too); K4 takes the head outputs Y that K3
+   returns, Y is held against the plain head outputs, and K3/K4 must repeat
+   bit for bit; K2 also on frames of the dipeptide's 22 atoms with 10
+   unsorted align indices; K1 also on a view 4 bytes into its buffer, a zero
+   frame (exactly the identity) and frames with two nearly equal singular
+   values;
 3. each kernel's device time (CUDA events, median of 21 batches of
    back-to-back calls queued behind a device sleep) beside its bound
    (the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s) and
    its plain version's device time (the summed durations of its kernels
-   under torch.profiler); K2 and K3 beside their times before their
+   under torch.profiler); K1, K2 and K3 beside their times before their
    redesigns, K3 + K4 beside their time before K3's, K2's direct variant
    (one thread per frame) at the same shapes, and the launch shape and
-   resident blocks and warps per SM of K2, K3 and K4;
+   resident blocks and warps per SM of K1, K2, K3 and K4;
 4. transfer-operator EigenFunctionTask training on data shaped like the
    repo's headline benchmark (120,000 frames, 10 atoms, lag 5, batch
    20,000, seed 0) with FusedAlignmentLayer and fused_step=True (K2, K3,
    K4), held against the plain-PyTorch step with AlignmentLayer
    (method='quaternion') on the card; then a short run through
-   AlignmentLayer(method='cuda') (K1); the plain run saves its model, and
+   AlignmentLayer(method='cuda') (K1) with non-uniform align weights, held
+   against the same run with method='quaternion'; the plain run saves its
+   model, and
    the TorchScript CV it writes (``latest/scripted_cv_cpu.pt``) must load on
    the CPU and agree with the trained CV model;
 5. steady-state training throughput of both steps, and the device's busy
@@ -62,11 +67,14 @@ RAGGED_B = 37
 # one sample past a multiple of K4's 64-sample tile, and of K3's 64- or
 # 32-sample tile
 EDGE_B = 4 * 64 + 1
-# K3, and K3 + K4, before K3's redesign; K2 before its redesign (PERF.md,
+# K3, and K3 + K4, before K3's redesign; K2 and K1 before theirs (PERF.md,
 # same card model)
 K3_BEFORE_US = 148.92
 K3_K4_BEFORE_US = 216.22
 K2_BEFORE_US = 18.60
+K1_BEFORE_US = 5.25
+# per-atom align weights of the K1 run (masses of 1 to 16, seeded)
+ALIGN_WEIGHTS = np.random.default_rng(1).uniform(1.0, 16.0, N_ATOMS)
 # K2 on the dipeptide's atoms (examples/dipeptide/top.gro)
 DIPEPTIDE_ATOMS, DIPEPTIDE_ALIGN = 22, 10
 
@@ -193,6 +201,46 @@ def check_close(name, got, want):
     torch.testing.assert_close(got, want, **TOL[name])
 
 
+def near_degenerate_covariances(n, seed=7):
+    """Covariances U diag(s) V^T with det > 0 and two singular values
+    nearly or exactly equal (f32 QCP solves them to ~6e-7)."""
+    rng = np.random.default_rng(seed)
+    svals = [(1.0, 1.0 - e, 0.3) for e in (1e-2, 1e-4, 1e-6, 0.0)]
+    svals += [(1.0, 0.5, 0.5 - e) for e in (1e-2, 1e-4, 1e-6, 0.0)]
+    s = np.asarray(svals)[rng.integers(len(svals), size=n)]
+    U, V = (np.linalg.qr(rng.standard_normal((n, 3, 3)))[0]
+            for _ in range(2))
+    U[:, :, 0] *= np.sign(np.linalg.det(U))[:, None]
+    V[:, :, 0] *= np.sign(np.linalg.det(V))[:, None]
+    return np.einsum("bij,bj,bkj->bik", U, s, V).astype(np.float32)
+
+
+def k1_cases(C, dev):
+    """K1 against its plain version beyond the main path's shapes: a view 4
+    bytes into its buffer, a zero frame, near-degenerate frames."""
+    from colvarsfinder_tpu_torch.ops.alignment import kabsch_rotations_quat
+    from colvarsfinder_tpu_torch.ops.kabsch_cuda import kabsch_qcp_launch
+
+    buf = torch.empty(C.numel() + 1, device=dev)
+    view = buf[1:].view(C.shape)
+    view.copy_(C)
+    zero = C[:EDGE_B].clone()
+    zero[0] = 0.0
+    near = torch.from_numpy(near_degenerate_covariances(4096)).to(dev)
+    for what, Ck in ((f"a view at {view.data_ptr() % 16} bytes past 16-byte "
+                      "alignment", view),
+                     ("a zero frame", zero),
+                     ("near-degenerate frames", near)):
+        got, want = kabsch_qcp_launch(Ck), kabsch_rotations_quat(Ck)
+        torch.cuda.synchronize()
+        check_close("kabsch_qcp", got, want)
+        log(f"  kabsch_qcp   B={Ck.shape[0]:6d}, {what}: max |kernel - "
+            f"plain| = {max_err(got, want):.3e} (tolerance "
+            f"{TOL['kabsch_qcp']})")
+        if Ck is zero and not torch.equal(got[0], torch.eye(3, device=dev)):
+            raise AssertionError("K1: a zero frame is not exactly the identity")
+
+
 def phase_kernels(ref_np, traj, weights, dev, cvf):
     """Phases 2 and 3: every kernel against its plain version, and timed."""
     from colvarsfinder_tpu_torch.ops import _cuda
@@ -217,11 +265,13 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
         unflatten_grads,
     )
     from colvarsfinder_tpu_torch.ops.kabsch_cuda import (
+        KABSCH_TILE,
         AlignShape,
         align_launch_shape,
         align_resident_blocks,
         fused_align_launch,
         kabsch_qcp_launch,
+        kabsch_resident_blocks,
     )
 
     ref = torch.from_numpy(ref_np - ref_np.mean(0)).to(dev)
@@ -235,6 +285,8 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
     results = {}
 
     bwd = bwd_launch_shape(DIMS, K)
+    if EDGE_B % KABSCH_TILE != 1:
+        raise AssertionError("EDGE_B is not one past a multiple of K1's tile")
     for B in (BATCH, RAGGED_B, EDGE_B):
         main = B == BATCH
         X = traj[:B].to(dev)
@@ -315,6 +367,7 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
 
         if not main:
             continue
+        C_main = C
         direct_us = device_ms(lambda: fused_align_launch(
             X, ref, idx32, AlignShape(0, 256, 0))) * 1e3
         # phase 3: device time beside the bound, at the main path's shapes
@@ -369,7 +422,10 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
     log(f"  fused_align  B={BATCH:6d}, {DIPEPTIDE_ATOMS} atoms, align "
         f"indices {i22.tolist()}: max |kernel - plain| = "
         f"{max_err(got, want):.3e} (tolerance {TOL['fused_align']})")
+    k1_cases(C_main, dev)
 
+    k1 = results["kabsch_qcp"]["ms"] * 1e3
+    log(f"  K1 {k1:.2f} us (before its redesign: {K1_BEFORE_US} us)")
     k2 = results["fused_align"]["ms"] * 1e3
     k3 = results["stats_fwd"]["ms"] * 1e3
     k3_k4 = k3 + results["stats_bwd"]["ms"] * 1e3
@@ -377,6 +433,12 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
         f"direct variant in this run: {direct_us:.2f} us)")
     log(f"  K3 {k3:.2f} us (before its redesign: {K3_BEFORE_US} us); K3 + K4 "
         f"{k3_k4:.2f} us (before: {K3_K4_BEFORE_US} us)")
+    k1_res = kabsch_resident_blocks()
+    log(f"  K1 launch: tile {KABSCH_TILE} frames, {KABSCH_TILE} threads, "
+        f"{36 * KABSCH_TILE} B shared memory per block, "
+        f"{-(-BATCH // KABSCH_TILE)} blocks; resident per SM {k1_res} blocks "
+        f"= {k1_res * -(-KABSCH_TILE // 32)} warps "
+        "(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
     k2_shape = align_launch_shape(N_ATOMS, N_ATOMS)
     k2_res = align_resident_blocks(k2_shape)
     log(f"  K2 launch: tile {k2_shape.tile} frames, {k2_shape.threads} "
@@ -400,11 +462,12 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
 
 
 def make_task(cvf, traj_obj, ref, path, fused, method, epochs,
-              save_every=0):
+              save_every=0, align_weights=None):
     if method == "fused":
         align = cvf.FusedAlignmentLayer(ref, list(range(N_ATOMS)))
     else:
-        align = cvf.AlignmentLayer(ref, list(range(N_ATOMS)), method=method)
+        align = cvf.AlignmentLayer(ref, list(range(N_ATOMS)), method=method,
+                                   align_weights=align_weights)
     pp = cvf.PreprocessingANN(
         align,
         cvf.FeatureLayer([cvf.Feature("p", "position",
@@ -435,12 +498,16 @@ def phase_training(ref, traj_np, w_np, cvf):
         for label, fused, method, epochs in (
             ("fused", True, "fused", EPOCHS),
             ("plain", False, "quaternion", EPOCHS),
+            # weighted alignment, whose kernel route is K1
             ("k1", True, "cuda", K1_EPOCHS),
+            ("k1 plain", True, "quaternion", K1_EPOCHS),
         ):
             # the plain run saves its model once, after its last epoch
             task = make_task(cvf, traj_obj, ref, f"{tmp}/{label}", fused,
                              method, epochs,
-                             save_every=epochs if label == "plain" else 0)
+                             save_every=epochs if label == "plain" else 0,
+                             align_weights=(ALIGN_WEIGHTS if "k1" in label
+                                            else None))
             torch.cuda.synchronize()
             _cuda.reset_launch_counts()
             t0 = time.perf_counter()
@@ -458,7 +525,7 @@ def phase_training(ref, traj_np, w_np, cvf):
             sps = nb_train * BATCH / steady
             runs[label] = dict(task=task, counts=counts, wall=wall,
                                sps=sps, epochs=epochs)
-            log(f"  {label:5s}: {epochs} epochs in {wall:.2f} s, loss "
+            log(f"  {label:8s}: {epochs} epochs in {wall:.2f} s, loss "
                 f"{loss[0]:.5f} -> {loss[-1]:.5f}, eig_1 "
                 f"{task.train_loss[-1, 3]:.4f}; launches {counts}")
             if label == "plain":
@@ -467,27 +534,31 @@ def phase_training(ref, traj_np, w_np, cvf):
     # the schedule: per epoch nb_train steps and nb_test test batches; each
     # batch aligns X and X_l (K2 or K1) and computes the stats (K3); each
     # train step runs the stats backward (K4)
-    for label, align_kernel in (("fused", "fused_align"), ("k1",
-                                                           "kabsch_qcp")):
+    for label, align_kernel in (("fused", "fused_align"),
+                                ("k1", "kabsch_qcp"), ("k1 plain", None)):
         r = runs[label]
         e = r["epochs"]
         want = {"kabsch_qcp": 0, "fused_align": 0,
-                align_kernel: 2 * e * (nb_train + nb_test),
                 "stats_fwd": e * (nb_train + nb_test),
                 "stats_bwd": e * nb_train}
+        if align_kernel:
+            want[align_kernel] = 2 * e * (nb_train + nb_test)
         if r["counts"] != want:
             raise AssertionError(f"{label}: launches {r['counts']}, the "
                                  f"schedule implies {want}")
     if any(runs["plain"]["counts"].values()):
         raise AssertionError(f"plain step launched {runs['plain']['counts']}")
 
+    for kern, plain in (("fused", "plain"), ("k1", "k1 plain")):
+        for col, name in ((0, "loss"), (3, "eig_1")):
+            a = runs[kern]["task"].train_loss[:, col]
+            b = runs[plain]["task"].train_loss[:, col]
+            rel = float(np.max(np.abs(a - b) / np.abs(b)))
+            log(f"  {kern} vs {plain} {name}: max relative difference "
+                f"{rel:.3e} over {runs[kern]['epochs']} epochs (tolerance "
+                f"{CURVE_RTOL[name]})")
+            np.testing.assert_allclose(a, b, rtol=CURVE_RTOL[name])
     fused, plain = runs["fused"]["task"], runs["plain"]["task"]
-    for col, name in ((0, "loss"), (3, "eig_1")):
-        a, b = fused.train_loss[:, col], plain.train_loss[:, col]
-        rel = float(np.max(np.abs(a - b) / np.abs(b)))
-        log(f"  fused vs plain {name}: max relative difference {rel:.3e} "
-            f"over {EPOCHS} epochs (tolerance {CURVE_RTOL[name]})")
-        np.testing.assert_allclose(a, b, rtol=CURVE_RTOL[name])
     if not np.array_equal(fused._cvec, plain._cvec):
         raise AssertionError(f"cvec {fused._cvec} != {plain._cvec}")
     cv = fused.colvar_model()

@@ -19,7 +19,19 @@
 // What bounds them on the H100: both move little data (K1 72 B/frame,
 // K2 240 B/frame at N = 10) and do a few hundred flops per frame, so at
 // B = 20,000 both sit near the launch latency plus one dependent QCP chain
-// per frame. K1 is one thread per frame, all in registers.
+// per frame. So both spread small blocks over every SM and move their bytes
+// in coalesced runs. The QCP chain keeps all 16 Newton steps: an early exit
+// at the loop's fixed point changes how nvcc fuses multiply-adds around the
+// loop, and with them the bits (scripts/k4_ablation.py k1).
+//
+// K1 (kabsch_qcp_kernel): one block of T threads per tile of T
+// consecutive frames. The tile's T * 9 floats are contiguous in C, so the
+// block copies them into shared memory with coalesced 4-byte cp.async
+// copies, all in flight at once, whatever the tile's alignment. One thread
+// per frame reads its 9 entries at a stride of 9 words (odd: no bank
+// conflicts), normalizes them (one reciprocal, nine multiplies), solves QCP
+// and leaves R in its own 9 slots; the block then stores the tile's T * 9
+// outputs in order, coalesced.
 //
 // K2 has two variants; the caller picks one by the frame's size
 // (align_launch_shape in ops/kabsch_cuda.py):
@@ -44,8 +56,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;        // K1 and K2's direct variant
+constexpr int kThreads = 256;        // K2's direct variant
 constexpr int kStagedThreads = 128;  // K2's staged variant
+constexpr int kMaxTile = 256;        // K1: frames (threads) per block
 constexpr int kRStride = 13;         // R (9) and centroid (3), odd stride
 
 // asynchronous 4-byte global -> shared copy (cp.async, sm_80+); all of a
@@ -61,30 +74,47 @@ __device__ __forceinline__ void cp_async_wait_all() {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-__global__ void kabsch_qcp_kernel(const float* __restrict__ C,
-                                  float* __restrict__ R, int B) {
-    const int b = blockIdx.x * blockDim.x + threadIdx.x;
-    if (b >= B) return;
-    const float* cb = C + (size_t)b * 9;
-    float c[9];
-    float fro2 = 0.0f;
+// Shared memory: the tile's covariances, then its rotations, [T][9].
+__global__ void __launch_bounds__(kMaxTile)
+kabsch_qcp_kernel(const float* __restrict__ C, float* __restrict__ R,
+                  int B) {
+    extern __shared__ float sc[];
+    const int tid = threadIdx.x;
+    const int T = blockDim.x;
+    const long b0 = (long)blockIdx.x * T;
+    const int count = 9 * (int)min((long)T, (long)B - b0);
+    const float* ct = C + b0 * 9;
+
+    for (int e = tid; e < count; e += T) cp_async_f32(sc + e, ct + e);
+    cp_async_wait_all();
+    __syncthreads();
+
+    if (9 * tid < count) {
+        float* s = sc + 9 * tid;
+        float c[9];
+        float fro2 = 0.0f;
 #pragma unroll
-    for (int i = 0; i < 9; ++i) {
-        c[i] = cb[i];
-        fro2 += c[i] * c[i];
+        for (int i = 0; i < 9; ++i) {
+            c[i] = s[i];
+            fro2 += c[i] * c[i];
+        }
+        const float norm = sqrtf(fro2);
+        float r[9];
+        if (norm > 1e-12f) {
+            const float inv = 1.0f / norm;
+#pragma unroll
+            for (int i = 0; i < 9; ++i) c[i] *= inv;
+            cvf::qcp_rotation(c, r);
+        } else {
+            cvf::identity9(r);
+        }
+#pragma unroll
+        for (int i = 0; i < 9; ++i) s[i] = r[i];
     }
-    const float norm = sqrtf(fro2);
-    float r[9];
-    if (norm > 1e-12f) {
-#pragma unroll
-        for (int i = 0; i < 9; ++i) c[i] = c[i] / norm;
-        cvf::qcp_rotation(c, r);
-    } else {
-        cvf::identity9(r);
-    }
-    float* rb = R + (size_t)b * 9;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) rb[i] = r[i];
+    __syncthreads();
+
+    float* rt = R + b0 * 9;
+    for (int e = tid; e < count; e += T) rt[e] = sc[e];
 }
 
 // Centroid c of the align atoms and the rotation R of one frame xb (atom n
@@ -216,11 +246,21 @@ extern "C" {
 // Each entry point launches on `stream` and returns cudaGetLastError()
 // (0 on success) without synchronizing.
 
-int cvf_kabsch_qcp(const float* C, float* R, int B, void* stream) {
+// K1 with one block of `tile` threads (1..256) per `tile` frames.
+int cvf_kabsch_qcp(const float* C, float* R, int B, int tile, void* stream) {
     if (B <= 0) return 0;
-    const int grid = (B + kThreads - 1) / kThreads;
-    kabsch_qcp_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(C, R, B);
+    if (tile < 1 || tile > kMaxTile) return (int)cudaErrorInvalidValue;
+    const int grid = (B + tile - 1) / tile;
+    kabsch_qcp_kernel<<<grid, tile, tile * 9 * sizeof(float),
+                        (cudaStream_t)stream>>>(C, R, B);
     return (int)cudaGetLastError();
+}
+
+// K1 blocks of `tile` frames resident on one SM of the current card.
+int cvf_kabsch_qcp_occupancy(int tile, int* blocks_per_sm) {
+    if (tile < 1 || tile > kMaxTile) return (int)cudaErrorInvalidValue;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        blocks_per_sm, kabsch_qcp_kernel, tile, tile * 9 * sizeof(float));
 }
 
 // tile 0: the direct variant; tile 1..128: the staged variant with one

@@ -5,7 +5,9 @@ shared library with a plain C interface and loaded with ``ctypes``. The
 library is built at first use from the package's own sources, into
 ``build/cvf_torch_kernels/`` beside the package; its file name carries a
 hash of the sources and flags, so an edited source is rebuilt.
-:func:`build_all` starts one ``nvcc`` per source, all at once.
+:func:`build_all` starts one ``nvcc`` per source, all at once;
+:func:`build_copies` builds copies of a source with textual edits (phase
+ablations, exactness checks against a variant).
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -25,6 +27,7 @@ from pathlib import Path
 __all__ = [
     "LAUNCHES",
     "build_all",
+    "build_copies",
     "check",
     "launch_counts",
     "library",
@@ -45,7 +48,8 @@ _I = ctypes.c_int
 # argtypes of every C entry point, per library
 _SIGNATURES = {
     "kabsch": {
-        "cvf_kabsch_qcp": (_P, _P, _I, _P),
+        "cvf_kabsch_qcp": (_P, _P, _I, _I, _P),
+        "cvf_kabsch_qcp_occupancy": (_I, _P),
         "cvf_fused_align": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
         "cvf_fused_align_occupancy": (_I, _P),
     },
@@ -143,6 +147,14 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+def _load(path: Path, name: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = list(argtypes)
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if missing."""
     lib = _LIBS.get(name)
@@ -152,12 +164,51 @@ def library(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             _finish(name, _start(name))
-            lib = ctypes.CDLL(str(_lib_path(name)))
-            for fn, argtypes in _SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = list(argtypes)
-                getattr(lib, fn).restype = ctypes.c_int
-            _LIBS[name] = lib
+            lib = _LIBS[name] = _load(_lib_path(name), name)
     return lib
+
+
+def build_copies(name: str, edits: dict, directory) -> dict:
+    """Libraries built from copies of ``csrc/<name>.cu`` with textual edits.
+
+    ``edits`` maps a copy's name to a list of ``(file, old, new)``
+    replacements in ``<name>.cu`` or in a header of ``csrc/``, each ``old``
+    found exactly once (an empty list: the source as it is). Each copy is
+    written to its own subdirectory of ``directory``, where its edited
+    headers shadow those of ``csrc/``; one ``nvcc`` per copy, all started
+    together. Returns ``{copy name: loaded library}``.
+    """
+    procs = {}
+    try:
+        for copy, changes in edits.items():
+            d = Path(directory) / copy.replace(" ", "_")
+            d.mkdir(parents=True, exist_ok=True)
+            files = {f"{name}.cu": (CSRC / f"{name}.cu").read_text()}
+            for fname, old, new in changes:
+                text = files.get(fname) or (CSRC / fname).read_text()
+                if text.count(old) != 1:
+                    raise RuntimeError(
+                        f"{copy}: text to replace not found once in {fname}")
+                files[fname] = text.replace(old, new)
+            for fname, text in files.items():
+                (d / fname).write_text(text)
+            so = d / f"{name}.so"
+            procs[copy] = (so, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(so),
+                 str(d / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        libs = {}
+        for copy, (so, proc) in procs.items():
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for copy {copy!r}:\n{out}")
+            libs[copy] = _load(so, name)
+        return libs
+    finally:
+        for _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def stream_handle() -> int:

@@ -14,15 +14,18 @@ r"""CUDA Kabsch kernels (counterpart of ``colvarsfinder_tpu/ops/kabsch_pallas.py
 On the H100 both kernels move a few hundred bytes and do a few hundred
 flops per frame; at the main path's B = 20,000 they are bound by launch
 latency and one dependent QCP chain per frame, not by the card's memory
-rate or FMA rate (see ``csrc/kabsch.cu``). K1 runs one thread per frame.
-K2 stages a tile of consecutive frames through shared memory with
-coalesced copies, one thread per frame solves, and the whole block rotates
-and stores the tile in order; frames too large for a tile (thousands of
-atoms) take K2's direct variant, one thread per frame from device memory.
-:func:`align_launch_shape` picks the variant.
+rate or FMA rate (see ``csrc/kabsch.cu``). Both stage a tile of
+consecutive frames through shared memory with coalesced copies, one thread
+per frame solves, and the whole block stores the tile in order; K2's frames
+too large for a tile (thousands of atoms) take its direct variant, one
+thread per frame from device memory. :func:`align_launch_shape` picks K2's
+variant.
 
-Each wrapper dispatches by the tensor's device: on the CPU it runs the
-plain version; on a CUDA tensor it launches the kernel or raises.
+As the JAX kernels do, both take inputs of any floating dtype, compute in
+float32 and return the input's dtype; their backward differentiates the
+plain formulation at the input in the input's own dtype. Each wrapper
+dispatches by the tensor's device: on the CPU it runs the plain version; on
+a CUDA tensor it launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -39,6 +42,8 @@ from .fused_eigen import SMEM_LIMIT
 
 __all__ = [
     "ALIGN_TILE",
+    "KABSCH_TILE",
+    "KABSCH_TILES",
     "AlignShape",
     "FusedAlignmentLayer",
     "align_frames_fused_cuda",
@@ -46,10 +51,18 @@ __all__ = [
     "align_resident_blocks",
     "align_smem_bytes",
     "kabsch_qcp_launch",
+    "kabsch_resident_blocks",
     "fused_align_launch",
     "kabsch_rotations_cuda",
 ]
 
+#: frames (one thread each) per block of K1, and the tiles it was swept
+#: over: at the main path's shapes all four took the same time on an H100
+#: to within 0.09 us, and no tile was fastest in every run
+#: (scripts/k4_ablation.py k1); 32 spreads the 20,000 frames over every SM
+#: (625 blocks), as K2's tile does
+KABSCH_TILE = 32
+KABSCH_TILES = (32, 64, 128, 256)
 #: frames per block of K2's staged variant: at the main path's shapes 32
 #: frames (625 blocks, at most 5 on an SM) took 7.12 us on an H100 against
 #: 7.48 us for 64 (313 blocks, 3 on the busiest SM), 7.71 us for 16 and
@@ -116,13 +129,26 @@ def _require(t: torch.Tensor, name: str, shape_ok: bool, dtype=torch.float32):
         raise ValueError(f"{name} must be contiguous")
 
 
-def kabsch_qcp_launch(C: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on C [B, 3, 3] float32 (CUDA, contiguous)."""
+def kabsch_resident_blocks(tile: int = KABSCH_TILE) -> int:
+    """K1 blocks of ``tile`` frames resident on one SM of the current card
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    import ctypes
+
+    out = ctypes.c_int(0)
+    err = _cuda.library("kabsch").cvf_kabsch_qcp_occupancy(
+        tile, ctypes.byref(out))
+    _cuda.check(err, "cvf_kabsch_qcp_occupancy")
+    return out.value
+
+
+def kabsch_qcp_launch(C: torch.Tensor, tile: int = KABSCH_TILE) -> torch.Tensor:
+    """Launch K1 on C [B, 3, 3] float32 (CUDA, contiguous), one block of
+    ``tile`` threads per ``tile`` frames."""
     _require(C, "C", C.dim() == 3 and C.shape[1:] == (3, 3))
     R = torch.empty_like(C)
     lib = _cuda.library("kabsch")
     err = lib.cvf_kabsch_qcp(
-        C.data_ptr(), R.data_ptr(), C.shape[0], _cuda.stream_handle()
+        C.data_ptr(), R.data_ptr(), C.shape[0], tile, _cuda.stream_handle()
     )
     _cuda.check(err, "cvf_kabsch_qcp")
     _cuda.LAUNCHES["kabsch_qcp"] += 1
@@ -156,10 +182,18 @@ def fused_align_launch(x: torch.Tensor, ref: torch.Tensor,
 
 
 class _KabschQCP(torch.autograd.Function):
+    """K1 on C in float32, R in C's dtype; the backward differentiates the
+    SVD Kabsch at C in C's own dtype (``kabsch_pallas.py:118-126``)."""
+
     @staticmethod
     def forward(ctx, C):
         ctx.save_for_backward(C)
-        return kabsch_qcp_launch(C)
+        C32 = C.to(torch.float32)
+        if C.device.type == "cpu":
+            R = kabsch_rotations_quat(C32)
+        else:
+            R = kabsch_qcp_launch(C32.contiguous())
+        return R.to(C.dtype)
 
     @staticmethod
     def backward(ctx, g):
@@ -171,54 +205,61 @@ class _KabschQCP(torch.autograd.Function):
 
 
 def kabsch_rotations_cuda(C: torch.Tensor) -> torch.Tensor:
-    """Optimal rotations from covariances C [B, 3, 3] through kernel K1;
-    interchangeable with :func:`.alignment.kabsch_rotations_svd`."""
-    if C.device.type == "cpu":
-        return kabsch_rotations_quat(C)
-    return _KabschQCP.apply(C.contiguous())
+    """Optimal rotations from covariances C [B, 3, 3] of any floating dtype
+    through kernel K1 (its plain version on a CPU tensor), computed in
+    float32 and returned in C's dtype; interchangeable with
+    :func:`.alignment.kabsch_rotations_svd`."""
+    return _KabschQCP.apply(C)
 
 
 class _FusedAlign(torch.autograd.Function):
+    """K2 on x and the reference in float32, the result in x's dtype; the
+    backward differentiates ``align_frames`` at x with the reference in x's
+    dtype (``kabsch_pallas.py:272-286``)."""
+
     @staticmethod
     def forward(ctx, x, ref, idx32, idx64):
         ctx.save_for_backward(x, ref, idx64)
-        return fused_align_launch(x, ref, idx32)
+        x32, ref32 = x.to(torch.float32), ref.to(torch.float32)
+        if x.device.type == "cpu":
+            out = align_frames(x32, ref32, idx64, method="quaternion")
+        else:
+            out = fused_align_launch(x32.contiguous(), ref32.contiguous(),
+                                     idx32)
+        return out.to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
         x, ref, idx64 = ctx.saved_tensors
         with torch.enable_grad():
             xd = x.detach().requires_grad_()
-            out = align_frames(xd, ref, idx64, method="quaternion")
+            out = align_frames(xd, ref.to(x.dtype), idx64, method="quaternion")
             (gx,) = torch.autograd.grad(out, xd, g)
         return gx, None, None, None
 
 
-def _fused_align(x, ref, idx64, idx32):
-    """K2 on a CUDA tensor, its plain version on a CPU tensor."""
-    if x.device.type == "cpu":
-        return align_frames(x, ref, idx64, method="quaternion")
-    return _FusedAlign.apply(x.contiguous(), ref, idx32, idx64)
-
-
 def align_frames_fused_cuda(x: torch.Tensor, ref_centered: torch.Tensor,
                             align_idx) -> torch.Tensor:
-    """Fused rigid alignment of x [B, N, 3]: equal to
-    ``align_frames(x, ref_centered, align_idx, method='quaternion')`` and run
-    as one kernel on a CUDA tensor; differentiable w.r.t. ``x``."""
+    """Fused rigid alignment of x [B, N, 3] of any floating dtype: equal to
+    ``align_frames(x, ref_centered, align_idx, method='quaternion')`` in
+    float32, run as one kernel on a CUDA tensor, returned in x's dtype;
+    differentiable w.r.t. ``x``."""
     idx = np.asarray(torch.as_tensor(align_idx).cpu(), dtype=np.int64)
     if idx.size and (idx.min() < 0 or idx.max() >= x.shape[1]):
         raise IndexError(f"align indices out of range for {x.shape[1]} atoms")
     idx64 = torch.as_tensor(idx, device=x.device)
     ref = torch.as_tensor(ref_centered, device=x.device,
-                          dtype=torch.float32).contiguous()
-    return _fused_align(x, ref, idx64, idx64.to(torch.int32))
+                          dtype=torch.float32)
+    return _FusedAlign.apply(x, ref, idx64.to(torch.int32), idx64)
 
 
 class FusedAlignmentLayer(nn.Module):
     """Drop-in alternative to :class:`.alignment.AlignmentLayer` (no align
     weights) that runs the whole alignment as kernel K2 on the card
-    (``colvarsfinder_tpu/ops/kabsch_pallas.py:292``).
+    (``colvarsfinder_tpu/ops/kabsch_pallas.py:292``). Frames of any floating
+    dtype are aligned in float32 and returned in their dtype; a layer moved
+    to float64 (``.double()``) aligns with its reference cast back to
+    float32, as the JAX layer does.
 
     Args:
         align_positions: reference coordinates of the align atoms [m, 3]
@@ -260,6 +301,6 @@ class FusedAlignmentLayer(nn.Module):
                 f"align index {self._max_idx} out of range for "
                 f"{x.shape[1]} atoms"
             )
-        out = _fused_align(x, self.ref_centered, self.align_idx,
-                           self._align_idx32)
+        out = _FusedAlign.apply(x, self.ref_centered, self._align_idx32,
+                                self.align_idx)
         return out[0] if squeeze else out

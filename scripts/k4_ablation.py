@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Where K2's, K3's and K4's time goes: phase ablation, tiles and batch
+"""Where K1's, K2's, K3's and K4's time goes: phase ablation, tiles and batch
 sweeps on one NVIDIA card.
 
     python3 scripts/k4_ablation.py          # all sections
+    python3 scripts/k4_ablation.py k1       # K1 only
     python3 scripts/k4_ablation.py k2       # K2 only
     python3 scripts/k4_ablation.py k3k4     # K3 and K4 only
 
 No profiler that reads hardware counters is assumed. Instead the script
 builds ``colvarsfinder_tpu_torch/csrc/fused_eigen.cu`` and ``kabsch.cu`` as
-they are and copies with one phase removed, and times each at the main
-path's shapes (B = 20,000; K3/K4: dims [30,20,20,20,1], k = 2; K2: 10 atoms,
-all align atoms). The time a phase's removal saves is that phase's share.
-The copies compute wrong results; only their time is read.
+they are and copies with one phase removed (``_cuda.build_copies``), and
+times each at the main path's shapes (B = 20,000; K3/K4: dims
+[30,20,20,20,1], k = 2; K1/K2: 10 atoms, all align atoms). The time a
+phase's removal saves is that phase's share. The copies compute wrong
+results; only their time is read.
 
 * K4: its hidden-layer forward, cotangent backprop and dW contraction; then
   K4 over batch sizes around one and two waves of resident blocks.
@@ -22,13 +24,21 @@ The copies compute wrong results; only their time is read.
   covariance), the QCP call replaced by the identity (the compiler then
   drops the covariance too: the whole solve), and the whole body (the
   launch alone); its tiles and its direct variant; a batch sweep.
+* K1: the whole body (the launch alone), the whole solve (QCP replaced by
+  the identity), the normalization as nine divisions in place of one
+  reciprocal; an early exit added to the Newton loop (its time, the step at
+  which each frame's lam repeats, the frames where it changes bits, from
+  copies that write lam in place of R, and the multiply-adds it makes nvcc
+  fuse otherwise, from the PTX); its tiles; a batch sweep.
 
 Device times are CUDA events, as in chip_smoke.py.
 """
 
 from __future__ import annotations
 
-import ctypes
+import difflib
+import functools
+import re
 import subprocess
 import sys
 import tempfile
@@ -82,39 +92,86 @@ REMOVE_K2 = {
     "body": ("    const float* xt = x + b0 * W;\n",
              "    const float* xt = x + b0 * W;\n    if (T > 0) return;\n"),
 }
+# The Newton loop of csrc/qcp.cuh (shared by K1 and K2), and an early exit
+# tried in its place: the lanes vote, and leave together once each lane's
+# lam repeats the value of one step before (a fixed point) or of two steps
+# before (a 2-cycle), step 16's value then chosen by the parity of the steps
+# left. It is not in the kernels: it changes bits (k1_exactness).
+NEWTON_LOOP = """\
+    float lam = 2.0f * sqrtf(fro2);
+#pragma unroll
+    for (int it = 0; it < kNewtonIters; ++it) {
+        const float p = ((lam * lam + c2) * lam + c1) * lam + c0;
+        const float dp = (4.0f * lam * lam + 2.0f * c2) * lam + c1;
+        lam = lam - p / (fabsf(dp) > 1e-12f ? dp : 1e-12f);
+    }
+"""
+EXIT_LOOP = """\
+    const unsigned solving = __activemask();
+    float lam = 2.0f * sqrtf(fro2);
+    float prev = lam;
+#pragma unroll
+    for (int it = 0; it < kNewtonIters; ++it) {
+        const float p = ((lam * lam + c2) * lam + c1) * lam + c0;
+        const float dp = (4.0f * lam * lam + 2.0f * c2) * lam + c1;
+        const float next = lam - p / (fabsf(dp) > 1e-12f ? dp : 1e-12f);
+        const unsigned bits = __float_as_uint(next);
+        const bool repeats =
+            bits == __float_as_uint(lam) || bits == __float_as_uint(prev);
+        prev = lam;
+        lam = next;
+        if (__all_sync(solving, repeats)) {
+            if ((kNewtonIters - 1 - it) & 1) lam = prev;
+            break;
+        }
+    }
+"""
+WITH_EXIT = [("qcp.cuh", NEWTON_LOOP, EXIT_LOOP)]
+R_LAST = "    R[8] = 1.0f - 2.0f * (x * x + y * y);\n"
+# K1 (csrc/kabsch.cu kabsch_qcp_kernel), (file, old, new) edits
+REMOVE_K1 = {
+    "body": [("kabsch.cu", "    const float* ct = C + b0 * 9;\n",
+              "    const float* ct = C + b0 * 9;\n    if (T > 0) return;\n")],
+    "solve": [("kabsch.cu", "            cvf::qcp_rotation(c, r);\n",
+               "            cvf::identity9(r);\n")],
+    "reciprocal": [("kabsch.cu",
+                    "            for (int i = 0; i < 9; ++i) c[i] *= inv;\n",
+                    "            for (int i = 0; i < 9; ++i) c[i] = c[i] / norm;"
+                    "\n")],
+}
+# copies that write in place of R: the early exit's step at which each
+# frame's lam first repeats (R[0][0]: k for a fixed point, -k for a 2-cycle,
+# 0 never) and its final lam (R[0][1]); the 16-step loop's lam after steps
+# 8..16 (R[0][0]..R[2][2])
+EXIT_TRACE = WITH_EXIT + [
+    ("qcp.cuh", "    float prev = lam;\n",
+     "    float prev = lam;\n    int steps = 0;\n"),
+    ("qcp.cuh", "        prev = lam;\n",
+     "        if (repeats && steps == 0)\n"
+     "            steps = bits == __float_as_uint(lam) ? it + 1 : -(it + 1);\n"
+     "        prev = lam;\n"),
+    ("qcp.cuh", R_LAST,
+     R_LAST + "    R[0] = (float)steps;\n    R[1] = lam;\n"),
+]
+FULL_TRACE = [
+    ("qcp.cuh", "    float lam = 2.0f * sqrtf(fro2);\n",
+     "    float trace[9];\n    float lam = 2.0f * sqrtf(fro2);\n"),
+    ("qcp.cuh", "        lam = lam - p / (fabsf(dp) > 1e-12f ? dp : 1e-12f);\n",
+     "        lam = lam - p / (fabsf(dp) > 1e-12f ? dp : 1e-12f);\n"
+     "        if (it >= 7) trace[it - 7] = lam;\n"),
+    ("qcp.cuh", R_LAST,
+     R_LAST + "    for (int i = 0; i < 9; ++i) R[i] = trace[i];\n"),
+]
 
 
 def build(tmp: Path, source="fused_eigen", removals=None) -> dict:
-    """The source as it is ("kernel") and one copy per removal, one nvcc
-    each, all started together."""
+    """The source as it is ("kernel") and one copy per removal of a line of
+    the source, one nvcc each, all started together."""
     removals = REMOVE if removals is None else removals
-    src = (_cuda.CSRC / f"{source}.cu").read_text()
-    procs = {}
-    for name in ("kernel", *removals):
-        text = src
-        if name in removals:
-            old, new = removals[name]
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: line to replace not found once")
-            text = text.replace(old, new)
-        stem = f"{source}_" + name.replace(" ", "_")
-        cu, so = tmp / f"{stem}.cu", tmp / f"{stem}.so"
-        cu.write_text(text)
-        procs[name] = (so, subprocess.Popen(
-            [_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-I", str(_cuda.CSRC), "-o",
-             str(so), str(cu)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
-        lib = ctypes.CDLL(str(so))
-        for fn, argtypes in _cuda._SIGNATURES[source].items():
-            getattr(lib, fn).argtypes = list(argtypes)
-            getattr(lib, fn).restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+    edits = {"kernel": []}
+    for name, (old, new) in removals.items():
+        edits[name] = [(f"{source}.cu", old, new)]
+    return _cuda.build_copies(source, edits, tmp)
 
 
 def inputs(B, flat, dev, seed=0):
@@ -225,16 +282,173 @@ def k2_section(tmp: Path, dev):
               "in and out)", flush=True)
 
 
+@functools.lru_cache(maxsize=1)
+def _main_data():
+    return cs.make_data(0)
+
+
+def main_path_covariances(B):
+    """Covariances of the main path's first B frames (chip_smoke's
+    make_data(0), repeated past its 120,000 frames) with its reference, all
+    atoms aligned, as chip_smoke phase 2 forms them."""
+    ref, traj, _ = _main_data()
+    x = np.concatenate([traj] * -(-B // len(traj)))[:B]
+    xc = x - x.mean(1, keepdims=True)
+    C = np.einsum("bmi,mj->bij", xc, ref - ref.mean(0))
+    return torch.from_numpy(C.astype(np.float32))
+
+
+def kabsch_launcher(lib, C, tile):
+    R = torch.empty_like(C)
+
+    def run():
+        err = lib.cvf_kabsch_qcp(C.data_ptr(), R.data_ptr(), C.shape[0], tile,
+                                 _cuda.stream_handle())
+        _cuda.check(err, "cvf_kabsch_qcp")
+        return R
+
+    return run
+
+
+def qcp_degenerate_covariances(n, seed=12):
+    """Covariances whose QCP key matrix has its top two eigenvalues nearly
+    equal (det < 0 with s2 ~ s3, or nearly collinear atoms), where the
+    Newton loop converges slowly."""
+    rng = np.random.default_rng(seed)
+    svals = [(1.0, 0.5, -(0.5 - e)) for e in (1e-1, 1e-2, 1e-3, 1e-4)]
+    svals += [(1.0, e, e) for e in (1e-2, 1e-3, 1e-4)]
+    s = np.asarray(svals)[rng.integers(len(svals), size=n)]
+    U, V = (np.linalg.qr(rng.standard_normal((n, 3, 3)))[0]
+            for _ in range(2))
+    C = np.einsum("bij,bj,bkj->bik", U, s, V)
+    return torch.from_numpy(C.astype(np.float32))
+
+
+def k1_exactness(libs, sets):
+    """Frames where the early exit's rotation differs from the 16-step
+    kernel's, and whether their lam differs."""
+    tile = kc.KABSCH_TILE
+    for label, C in sets:
+        B = C.shape[0]
+        full = kabsch_launcher(libs["kernel"], C, tile)().clone()
+        ex = kabsch_launcher(libs["early exit"], C, tile)().clone()
+        tr = kabsch_launcher(libs["exit trace"], C, tile)().clone()
+        steps = tr[:, 0, 0].cpu().numpy().astype(int)
+        lam_ex = tr[:, 0, 1].cpu().numpy()
+        lam16 = kabsch_launcher(libs["full trace"], C, tile)().reshape(
+            B, 9).cpu().numpy()
+        diff = (full != ex).reshape(B, 9).any(1).cpu().numpy()
+        lam_diff = lam_ex.view(np.uint32) != lam16[:, 8].view(np.uint32)
+        err = float((full - ex).abs().max())
+        print(f"  early exit, {label}: {int(diff.sum())} of {B} frames differ "
+              f"from the 16-step kernel (max |dR| {err:.3e}); lam differs "
+              f"from the 16-step loop's in {int(lam_diff.sum())} frames, "
+              f"{int((diff & lam_diff).sum())} of them among those",
+              flush=True)
+        for b in np.flatnonzero(diff | lam_diff)[:6]:
+            print(f"    frame {b}: repeats at step {steps[b]} (negative: a "
+                  f"2-cycle), exit lam {lam_ex[b]:.9g}, 16-step lam after "
+                  f"steps 8..16 {[f'{v:.9g}' for v in lam16[b]]}; max |dR| "
+                  f"{float((full[b] - ex[b]).abs().max()):.3e}", flush=True)
+
+
+def k1_float_ops(tmp: Path, copy: str) -> list:
+    """The f32 arithmetic of K1's entry in the PTX of one copy that
+    build_copies wrote under tmp, in order."""
+    d = tmp / copy.replace(" ", "_")
+    flags = [f for f in _cuda.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([_cuda._nvcc(), *flags, "-ptx", "-I", str(_cuda.CSRC),
+                    "-o", str(d / "kabsch.ptx"), str(d / "kabsch.cu")],
+                   check=True)
+    text = (d / "kabsch.ptx").read_text()
+    start = text.index("kabsch_qcp_kernel", text.index(".entry"))
+    body = text[start:text.index("\n}\n", start)]
+    return re.findall(r"^\s+(fma\.rn\.f32|mul\.f32|add\.f32|sub\.f32|"
+                      r"div\.rn\.f32)\s", body, re.M)
+
+
+def k1_fusion(tmp: Path):
+    """Where the early exit changes which multiply-adds nvcc fuses into one
+    FMA: K1's PTX with and without it, split at the Newton loop (its first
+    and last division)."""
+    a, b = k1_float_ops(tmp, "kernel"), k1_float_ops(tmp, "early exit")
+    for name, ops in (("16-step", a), ("early exit", b)):
+        print(f"  K1 PTX, {name}: " + ", ".join(
+            f"{ops.count(op)} {op}" for op in sorted(set(ops))), flush=True)
+    lo = a.index("div.rn.f32")
+    hi = len(a) - a[::-1].index("div.rn.f32")
+    where = {"before the loop": 0, "in the loop": 0, "after the loop": 0}
+    for tag, i1, i2, _, _ in difflib.SequenceMatcher(
+            None, a, b, autojunk=False).get_opcodes():
+        if tag != "equal":
+            key = ("before the loop" if i2 <= lo else
+                   "after the loop" if i1 >= hi else "in the loop")
+            where[key] += max(i2 - i1, 1)
+    print(f"  f32 instructions of the 16-step build that the early exit "
+          f"compiles otherwise: {where}", flush=True)
+
+
+def k1_section(tmp: Path, dev):
+    libs = _cuda.build_copies(
+        "kabsch", {"kernel": [], **REMOVE_K1, "early exit": WITH_EXIT,
+                   "exit trace": EXIT_TRACE, "full trace": FULL_TRACE}, tmp)
+    tile = kc.KABSCH_TILE
+    C = main_path_covariances(cs.BATCH).to(dev)
+    full = cs.device_ms(kabsch_launcher(libs["kernel"], C, tile)) * 1e3
+    print(f"K1 at B={cs.BATCH}, tile {tile} ({-(-cs.BATCH // tile)} blocks "
+          f"of {tile} threads): {full:.2f} us", flush=True)
+    for name in REMOVE_K1:
+        us = cs.device_ms(kabsch_launcher(libs[name], C, tile)) * 1e3
+        print(f"  without the {name:10s}: {us:8.2f} us (the phase: "
+              f"{full - us:6.2f} us)", flush=True)
+    us = cs.device_ms(kabsch_launcher(libs["early exit"], C, tile)) * 1e3
+    print(f"  with the early exit: {us:8.2f} us (saves {full - us:6.2f} us)",
+          flush=True)
+    # each frame's Newton steps; a warp of 32 consecutive frames leaves the
+    # loop at the step where its last lane repeats (16 if one never does)
+    steps = kabsch_launcher(libs["exit trace"], C, tile)()[:, 0, 0]
+    steps = steps.cpu().numpy().astype(int)
+    at = np.where(steps == 0, 16, np.abs(steps))
+    warp = at.reshape(-1, 32).max(1)
+    for what, sel in (("a fixed point", steps > 0), ("a 2-cycle", steps < 0),
+                      ("neither", steps == 0)):
+        hist = np.bincount(at[sel], minlength=17)[1:]
+        print(f"  frames whose lam repeats at {what}: {int(sel.sum())}, by "
+              f"step 1..16: {hist.tolist()}", flush=True)
+    print(f"  Newton steps a warp runs with the early exit: mean "
+          f"{warp.mean():.2f} of 16, {np.mean(warp == 16) * 100:.1f}% of "
+          "warps run all 16", flush=True)
+    k1_exactness(libs, (("main path", C),
+                        ("QCP-degenerate frames",
+                         qcp_degenerate_covariances(20000).to(dev))))
+    k1_fusion(tmp)
+    # each tile twice, in turns, to show the spread between repeats
+    for t in kc.KABSCH_TILES + kc.KABSCH_TILES[::-1]:
+        us = cs.device_ms(kabsch_launcher(libs["kernel"], C, t)) * 1e3
+        print(f"  tile {t:3d} ({-(-cs.BATCH // t):4d} blocks): {us:8.2f} us",
+              flush=True)
+    for B in (1_000, 5_000, 10_000, 20_000, 40_000, 80_000, 160_000):
+        CB = main_path_covariances(B).to(dev)
+        us = cs.device_ms(kabsch_launcher(libs["kernel"], CB, tile)) * 1e3
+        print(f"  B={B:7d} ({-(-B // tile):5d} blocks): {us:8.2f} us "
+              f"({2 * B * 9 * 4 / (us * 1e-6) / 1e12:.3f} TB/s of covariances "
+              "in and rotations out)", flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("k4_ablation: needs an NVIDIA card")
-    sections = sys.argv[1:] or ["k3k4", "k2"]
+    sections = sys.argv[1:] or ["k3k4", "k2", "k1"]
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda")
+    if "k1" in sections:
+        with tempfile.TemporaryDirectory() as tmp:
+            k1_section(Path(tmp), dev)
     if "k2" in sections:
         with tempfile.TemporaryDirectory() as tmp:
             k2_section(Path(tmp), dev)

@@ -9,8 +9,13 @@ import numpy as np
 import pytest
 import torch
 
+from colvarsfinder_tpu import config as jconfig
 from colvarsfinder_tpu.ops import alignment as jal
-from colvarsfinder_tpu.ops.kabsch_pallas import kabsch_rotations_pallas
+from colvarsfinder_tpu.ops.kabsch_pallas import FusedAlignmentLayer as JaxFused
+from colvarsfinder_tpu.ops.kabsch_pallas import (
+    align_frames_fused_pallas,
+    kabsch_rotations_pallas,
+)
 
 from colvarsfinder_tpu_torch.ops import _cuda
 from colvarsfinder_tpu_torch.ops import alignment as tal
@@ -232,3 +237,77 @@ def test_weighted_alignment_layer_matches_jax():
                                np.asarray(lj(jnp.asarray(x))), atol=2e-5)
     with pytest.raises(ValueError):
         tal.AlignmentLayer(ref, idx, method="bogus")
+
+
+@pytest.fixture
+def jax_float64():
+    """The JAX package in float64 mode, float32 restored afterwards."""
+    jconfig.set_default_dtype("float64")
+    yield
+    jconfig.set_default_dtype("float32")
+
+
+def _f64_case(kind):
+    """A float64 input of one K1 or K2 entry point: (JAX kernel, the JAX
+    formulation its custom_vjp differentiates, port function, input, bar on
+    the values)."""
+    rng = np.random.default_rng(12)
+    N, m = 8, 5
+    base = rng.standard_normal((N, 3))
+    x = base[None] + 0.3 * rng.standard_normal((B, N, 3))
+    idx = np.asarray([0, 2, 3, 5, 7])
+    ref = base[idx] - base[idx].mean(0)
+    if kind == "kabsch":
+        sel = x[:, idx] - x[:, idx].mean(1, keepdims=True)
+        C = np.einsum("bmi,mj->bij", sel, ref)
+        return (kabsch_rotations_pallas, jal.kabsch_rotations_svd,
+                kabsch_rotations_cuda, C, 2e-5)
+
+    def jax_align(method, r=ref):
+        return lambda xx: jal.align_frames(xx, jnp.asarray(r),
+                                           jnp.asarray(idx), method=method)
+
+    if kind == "align_frames":
+        return (jax_align("pallas"), jax_align("svd"),
+                lambda xx: tal.align_frames(xx, torch.from_numpy(ref),
+                                            torch.as_tensor(idx),
+                                            method="cuda"),
+                x, 2e-5)
+    # K2's backward differentiates the QCP alignment at x, with the float32
+    # reference the kernel saw
+    plain = jax_align("quaternion", ref.astype(np.float32))
+    if kind == "fused":
+        return (lambda xx: align_frames_fused_pallas(xx, ref, idx), plain,
+                lambda xx: align_frames_fused_cuda(xx, torch.from_numpy(ref),
+                                                   idx),
+                x, 2e-4)
+    layer = FusedAlignmentLayer(ref, idx)
+    return (JaxFused(ref, idx), plain,
+            layer.double() if kind == "layer_float64" else layer, x, 2e-4)
+
+
+@pytest.mark.parametrize(
+    "kind", ["kabsch", "align_frames", "fused", "layer", "layer_float64"])
+def test_float64_inputs_match_jax_kernels(jax_float64, kind):
+    """Like the JAX kernels, K1 and K2 take float64 input and compute in
+    float32; the port returns the input's dtype (torch does not promote
+    across einsum). Their backward differentiates the plain formulation at
+    the float64 input. The JAX custom_vjps mean the same, but raise under
+    x64 (the float32 cotangent of their output meets the float64 input), so
+    the JAX gradient is taken of the formulation they differentiate."""
+    f_jax, f_jax_bwd, f_port, x, atol = _f64_case(kind)
+    coef = np.random.default_rng(13).standard_normal(x.shape)
+    _cuda.reset_launch_counts()
+    xt = torch.from_numpy(x).requires_grad_()
+    out_t = f_port(xt)
+    (g_t,) = torch.autograd.grad((out_t ** 2 * torch.from_numpy(coef)).sum(),
+                                 xt)
+    assert _cuda.launch_counts() == {k: 0 for k in _cuda.LAUNCHES}
+    assert out_t.dtype == g_t.dtype == torch.float64
+    out_j = np.asarray(f_jax(jnp.asarray(x)))
+    np.testing.assert_allclose(out_t.detach().numpy(), out_j, atol=atol)
+    g_j = np.asarray(jax.grad(
+        lambda xx: (f_jax_bwd(xx) ** 2 * jnp.asarray(coef)).sum())(
+            jnp.asarray(x)))
+    assert g_j.dtype == np.float64
+    np.testing.assert_allclose(g_t.numpy(), g_j, **GRAD_TOL)

@@ -13,7 +13,11 @@ import torch
 
 from colvarsfinder_tpu_torch.models import EigenFunctions
 from colvarsfinder_tpu_torch.ops import _cuda
-from colvarsfinder_tpu_torch.ops.alignment import align_frames, kabsch_rotations_quat
+from colvarsfinder_tpu_torch.ops.alignment import (
+    AlignmentLayer,
+    align_frames,
+    kabsch_rotations_quat,
+)
 from colvarsfinder_tpu_torch.ops.fused_eigen import (
     _mlp_heads,
     bwd_launch_shape,
@@ -28,6 +32,8 @@ from colvarsfinder_tpu_torch.ops.fused_eigen import (
     transfer_stats_reference,
 )
 from colvarsfinder_tpu_torch.ops.kabsch_cuda import (
+    KABSCH_TILE,
+    KABSCH_TILES,
     AlignShape,
     FusedAlignmentLayer,
     align_launch_shape,
@@ -35,6 +41,7 @@ from colvarsfinder_tpu_torch.ops.kabsch_cuda import (
     align_smem_bytes,
     fused_align_launch,
     kabsch_qcp_launch,
+    kabsch_resident_blocks,
     kabsch_rotations_cuda,
 )
 
@@ -48,19 +55,23 @@ def dev():
     return torch.device("cuda")
 
 
+def _rotations(rng, n):
+    q = rng.standard_normal((n, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    w, x, y, z = q.T
+    return np.stack([
+        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+    ], axis=1).reshape(n, 3, 3)
+
+
 def _frames(B, N, m, seed, noise=0.3):
     """Noisy, randomly rotated and shifted copies of one structure, the
     align atoms a subset of the N atoms."""
     rng = np.random.default_rng(seed)
     base = rng.standard_normal((N, 3))
-    q = rng.standard_normal((B, 4))
-    q /= np.linalg.norm(q, axis=1, keepdims=True)
-    w, x, y, z = q.T
-    R = np.stack([
-        1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
-        2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
-        2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
-    ], axis=1).reshape(B, 3, 3)
+    R = _rotations(rng, B)
     fr = base[None] + noise * rng.standard_normal((B, N, 3))
     fr = np.einsum("bni,bij->bnj", fr, R) + rng.standard_normal((B, 1, 3))
     idx = np.sort(rng.choice(N, size=m, replace=False))
@@ -186,6 +197,96 @@ def test_k2_tiles_and_an_unaligned_input_equal_the_direct_variant(dev, tile):
     assert torch.equal(out, want)
     # the main path's launch shape keeps at least 8 warps on each SM
     assert align_resident_blocks(align_launch_shape(N, m)) * 4 >= 8
+
+
+def _near_degenerate(n, seed):
+    """Covariances U diag(s) V^T [n, 3, 3] (float64) with det > 0 and two
+    singular values nearly or exactly equal, which f32 QCP solves to ~6e-7
+    of the float64 SVD."""
+    rng = np.random.default_rng(seed)
+    svals = [(1.0, 1.0 - e, 0.3) for e in (1e-2, 1e-4, 1e-6, 0.0)]
+    svals += [(1.0, 0.5, 0.5 - e) for e in (1e-2, 1e-4, 1e-6, 0.0)]
+    s = np.asarray(svals)[rng.integers(len(svals), size=n)]
+    U, V = _rotations(rng, n), _rotations(rng, n)
+    return np.einsum("bij,bj,bkj->bik", U, s, V)
+
+
+def _covariances(dev, B, seed):
+    x, ref, idx = _frames(B, 10, 10, seed=seed)
+    sel = torch.from_numpy(x).to(dev)
+    C = torch.einsum("bmi,mj->bij", sel - sel.mean(1, keepdim=True),
+                     torch.from_numpy(ref).to(dev))
+    return C.contiguous()
+
+
+@pytest.mark.parametrize("case", ["edge_tile", "unaligned", "near_degenerate"])
+def test_k1_cases_match_plain(dev, case):
+    if case == "near_degenerate":
+        C = torch.from_numpy(_near_degenerate(4096, seed=7).astype(np.float32)
+                             ).to(dev)
+    else:
+        # one frame past a multiple of the tile; a view 4 bytes into its
+        # buffer, so no tile starts 16-byte aligned
+        B = 4 * KABSCH_TILE + 1 if case == "edge_tile" else 20000
+        C = _covariances(dev, B, seed=B)
+    C[1] = 0.0
+    if case == "unaligned":
+        buf = torch.empty(C.numel() + 1, device=dev)
+        view = buf[1:].view(C.shape)
+        view.copy_(C)
+        assert view.data_ptr() % 16 == 4
+        C = view
+    R = kabsch_qcp_launch(C)
+    torch.cuda.synchronize()
+    # the CPU tests' bar for the QCP paths
+    torch.testing.assert_close(R, kabsch_rotations_quat(C), atol=2e-5, rtol=0)
+    assert torch.equal(R[1], torch.eye(3, device=dev))
+
+
+def test_k1_tiles_equal_bitwise(dev):
+    C = _covariances(dev, 20000, seed=3)
+    C[5] = 0.0
+    want = kabsch_qcp_launch(C)
+    for tile in KABSCH_TILES:
+        assert torch.equal(kabsch_qcp_launch(C, tile), want), tile
+    # the chosen tile fits the main path's 20,000 frames on the card's SMs
+    # in one wave
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert kabsch_resident_blocks() * KABSCH_TILE * sms >= 20000
+
+
+@pytest.mark.parametrize("entry", ["kabsch", "align_frames", "fused_layer"])
+def test_float64_input_launches_once(dev, entry):
+    """Float64 input runs the f32 kernel once and comes back in float64,
+    equal to the f32 call on the same values (align_frames forms the
+    covariance in float64, so there the f32 call's bar)."""
+    x, ref, idx = _frames(512, 10, 6, seed=21)
+    x32 = torch.from_numpy(x).to(dev)
+    x64 = x32.double()
+    name = "fused_align" if entry == "fused_layer" else "kabsch_qcp"
+    if entry == "kabsch":
+        C32 = _covariances(dev, 512, seed=22)
+        run, inputs = kabsch_rotations_cuda, (C32.double(), C32)
+    elif entry == "align_frames":
+        layers = {dt: AlignmentLayer(ref, idx, method="cuda").to(dev, dt)
+                  for dt in (torch.float64, torch.float32)}
+        run, inputs = (lambda t: layers[t.dtype](t)), (x64, x32)
+    else:
+        layer = FusedAlignmentLayer(ref, idx).to(dev)
+        run, inputs = layer, (x64, x32)
+    _cuda.reset_launch_counts()
+    out64 = run(inputs[0])
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES[name] == 1
+    assert out64.dtype == torch.float64
+    want = run(inputs[1]).double()
+    if entry == "align_frames":
+        torch.testing.assert_close(out64, want, atol=2e-5, rtol=0)
+    else:
+        assert torch.equal(out64, want)
+    if entry == "fused_layer":
+        # a layer moved to float64 casts its reference back to float32
+        assert torch.equal(layer.double()(x64), out64)
 
 
 def test_k2_layer_gradient_is_plain_autograd(dev):
