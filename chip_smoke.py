@@ -34,9 +34,13 @@ Phases (each raises on failure; nothing is caught):
    against the same run with method='quaternion'; the plain run saves its
    model, and
    the TorchScript CV it writes (``latest/scripted_cv_cpu.pt``) must load on
-   the CPU and agree with the trained CV model;
-5. steady-state training throughput of both steps, and the device's busy
-   share over two more epochs of each under torch.profiler.
+   the CPU and agree with the trained CV model. Every run trains through
+   the captured epoch (a CUDA graph per epoch, replayed); the fused run is
+   repeated with every epoch forced eager and must agree bit for bit;
+5. steady-state training throughput of both steps, and over two more
+   epochs of each under torch.profiler: wall and device time, device
+   activities per step, the device's busy share and the graph replays
+   (``cudaGraphLaunch`` calls) per epoch.
 
 The second-to-last line lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -497,6 +501,7 @@ def phase_training(ref, traj_np, w_np, cvf):
     with tempfile.TemporaryDirectory() as tmp:
         for label, fused, method, epochs in (
             ("fused", True, "fused", EPOCHS),
+            ("fused eager", True, "fused", EPOCHS),
             ("plain", False, "quaternion", EPOCHS),
             # weighted alignment, whose kernel route is K1
             ("k1", True, "cuda", K1_EPOCHS),
@@ -508,6 +513,9 @@ def phase_training(ref, traj_np, w_np, cvf):
                              save_every=epochs if label == "plain" else 0,
                              align_weights=(ALIGN_WEIGHTS if "k1" in label
                                             else None))
+            # the comparison run: every epoch eager (a private switch that
+            # nothing in the package sets)
+            task._eager_on_card = label == "fused eager"
             torch.cuda.synchronize()
             _cuda.reset_launch_counts()
             t0 = time.perf_counter()
@@ -525,7 +533,10 @@ def phase_training(ref, traj_np, w_np, cvf):
             sps = nb_train * BATCH / steady
             runs[label] = dict(task=task, counts=counts, wall=wall,
                                sps=sps, epochs=epochs)
-            log(f"  {label:8s}: {epochs} epochs in {wall:.2f} s, loss "
+            if (task._graph is None) != (label == "fused eager"):
+                raise AssertionError(f"{label}: captured graph "
+                                     f"{task._graph is not None}")
+            log(f"  {label:11s}: {epochs} epochs in {wall:.2f} s, loss "
                 f"{loss[0]:.5f} -> {loss[-1]:.5f}, eig_1 "
                 f"{task.train_loss[-1, 3]:.4f}; launches {counts}")
             if label == "plain":
@@ -535,6 +546,7 @@ def phase_training(ref, traj_np, w_np, cvf):
     # batch aligns X and X_l (K2 or K1) and computes the stats (K3); each
     # train step runs the stats backward (K4)
     for label, align_kernel in (("fused", "fused_align"),
+                                ("fused eager", "fused_align"),
                                 ("k1", "kabsch_qcp"), ("k1 plain", None)):
         r = runs[label]
         e = r["epochs"]
@@ -559,6 +571,18 @@ def phase_training(ref, traj_np, w_np, cvf):
                 f"{CURVE_RTOL[name]})")
             np.testing.assert_allclose(a, b, rtol=CURVE_RTOL[name])
     fused, plain = runs["fused"]["task"], runs["plain"]["task"]
+    # the captured epochs against the same epochs run eagerly: bit for bit
+    eager = runs["fused eager"]["task"]
+    same = all(np.array_equal(a, b) for ea, eb in zip(fused.loss_list,
+                                                       eager.loss_list)
+               for a, b in zip(ea, eb))
+    same &= all(torch.equal(a, b) for a, b in zip(fused.model.parameters(),
+                                                  eager.model.parameters()))
+    log(f"  fused (graph) vs fused eager, {EPOCHS} epochs: every batch's "
+        f"metric row and every final parameter bit for bit equal: {same}")
+    if not same:
+        raise AssertionError("the captured fused epochs differ from the "
+                             "eager ones")
     if not np.array_equal(fused._cvec, plain._cvec):
         raise AssertionError(f"cvec {fused._cvec} != {plain._cvec}")
     cv = fused.colvar_model()
@@ -592,13 +616,24 @@ def check_scripted_cv(task, latest, traj_np, frames=100):
     torch.testing.assert_close(got, want, atol=SCRIPTED_ATOL, rtol=0)
 
 
-def phase_profile(runs, epochs=2):
-    """Device busy share of training: torch.profiler over ``epochs`` more
-    epochs of an already-trained task; kernel time summed per name."""
+def phase_profile(runs, epochs=2, chunk=10):
+    """Phase 5: torch.profiler over ``epochs`` more epochs of each trained
+    task (replays of its captured epoch). Per training step: the wall time,
+    the device time (the summed durations of the device activities), the
+    device activities, and the busy share (device time over wall time);
+    per epoch, the graph replays (``cudaGraphLaunch`` calls on the host).
+    Tracing every kernel of a replay slows the replay down, so the busy
+    share is also given against the unprofiled steady-state epoch time of
+    phase 4 (one host fetch per epoch), and samples/s once more with one
+    fetch per ``chunk`` epochs. Kernel time summed per name."""
     out = {}
     for label in ("fused", "plain"):
         task = runs[label]["task"]
-        task.num_epochs = epochs
+        n_samples = len(task._prepare_data()[0]) * BATCH
+        task.num_epochs, task.progress_interval = chunk, 0
+        task.train()
+        chunked_sps = n_samples / task.epoch_times[-1]
+        task.num_epochs, task.progress_interval = epochs, 1
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -609,16 +644,36 @@ def phase_profile(runs, epochs=2):
         kernels = device_activities(prof)
         busy = sum(e.self_device_time_total for e in kernels) * 1e-6
         steps = epochs * len(task._prepare_data()[0])
+        replays = sum(e.count for e in prof.key_averages()
+                      if e.key == "cudaGraphLaunch")
+        epoch_s = n_samples / runs[label]["sps"]
+        row = {
+            "samples_per_s": runs[label]["sps"],
+            "samples_per_s_one_fetch_per_chunk": chunked_sps,
+            "wall_ms_per_step": wall * 1e3 / steps,
+            "device_ms_per_step": busy * 1e3 / steps,
+            "device_activities_per_step":
+                sum(e.count for e in kernels) / steps,
+            "device_busy_share": busy / wall,
+            "steady_busy_share": busy / epochs / epoch_s,
+            "graph_replays_per_epoch": replays / epochs,
+        }
+        log(f"  {label}: {row['samples_per_s']:,.0f} samples/s "
+            f"({epoch_s * 1e3:.4f} ms/epoch; one fetch per {chunk} epochs: "
+            f"{chunked_sps:,.0f}); profiled, {steps} steps + {epochs} test "
+            f"batches in {wall * 1e3:.2f} ms: wall "
+            f"{row['wall_ms_per_step']:.4f} ms/step, device "
+            f"{row['device_ms_per_step']:.4f} ms/step, "
+            f"{row['device_activities_per_step']:.1f} device activities/"
+            f"step, busy share {100 * row['device_busy_share']:.1f}% "
+            f"(of the unprofiled epoch: "
+            f"{100 * row['steady_busy_share']:.1f}%), "
+            f"{row['graph_replays_per_epoch']:g} graph replays/epoch")
         top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-        log(f"  {label}: {steps} steps + {epochs} test batches in "
-            f"{wall * 1e3:.1f} ms; device busy {busy * 1e3:.2f} ms "
-            f"({100 * busy / wall:.1f}%), {sum(e.count for e in kernels)} "
-            "device activities")
         for e in top:
             log(f"    {e.self_device_time_total / steps:9.1f} us/step "
-                f"{e.count // steps:4d}x/step  {e.key[:70]}")
-        out[label] = {"wall_ms_per_step": wall * 1e3 / steps,
-                      "device_busy_share": busy / wall}
+                f"{e.count / steps:5.1f}x/step  {e.key[:70]}")
+        out[label] = row
     return out
 
 

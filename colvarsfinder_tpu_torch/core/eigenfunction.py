@@ -10,7 +10,11 @@ implementations, as in the JAX package:
   CUDA kernels K3/K4 (:mod:`..ops.fused_eigen`) on the card, and as their
   plain version on the CPU.
 
-The batches are gathered onto the device once before the loop. Per-step
+The batches are gathered onto the device once before the loop. An epoch is
+one call of :meth:`EigenFunctionTask._epoch_body`, which the card captures
+as a CUDA graph and replays (:meth:`.task.TrainingTask._run_epoch`), the
+counterpart of the JAX package's ``_multi_epoch_fn`` with ``prebatch`` and
+``unroll`` (``colvarsfinder_tpu/core/eigenfunction.py:193-291``). Per-step
 metrics stay on the device and reach the host once per chunk of epochs
 (the epochs up to the next checkpoint, plot or progress event). The
 generator loss (``lag_tau == 0``) is not ported yet.
@@ -25,6 +29,7 @@ import torch
 
 from ..config import default_dtype
 from ..export import ColvarModel
+from ..logging_utils import profile_trace
 from ..models.eigen import EigenFunctions
 from ..ops.features import Identity, as_pp_layer
 from ..ops.fused_eigen import (
@@ -176,11 +181,12 @@ class EigenFunctionTask(TrainingTask):
 
     # ------------------------------------------------------------------
     def _prepare_data(self):
-        """Batches gathered onto the device once: per batch
-        ``(X, X_l, w, w_l)``."""
-        cached = getattr(self, "_prepared", None)
-        if cached is not None:
-            return cached
+        """Batches gathered onto the device once, and the buffer of an
+        epoch's metric rows: ``(train, test, train_b, test_b, rows)`` with
+        ``(X, X_l, w, w_l)`` per batch and ``rows`` [nb_train + nb_test,
+        3 + 2k]. A captured epoch reads and writes them in place."""
+        if self._prepared is not None:
+            return self._prepared
         train_idx, test_idx = self._lagged_split(self.lag_idx)
         train_b = self._make_batches(train_idx, self.batch_size)
         test_b = self._make_batches(test_idx, self.batch_size)
@@ -194,8 +200,17 @@ class EigenFunctionTask(TrainingTask):
                             self._weights[i], self._weights[il]))
             return out
 
-        self._prepared = (pack(train_b), pack(test_b), train_b, test_b)
+        rows = torch.empty(
+            (len(train_b) + len(test_b), len(self.loss_names) + self.k),
+            dtype=self._weights.dtype, device=self.device,
+        )
+        self._prepared = (pack(train_b), pack(test_b), train_b, test_b, rows)
         return self._prepared
+
+    def _graph_static(self):
+        return ((self.fused_step, self._sort_eigvals_in_training, self._alpha,
+                 self.lag_idx, self.traj_dt),
+                (self.model, self._pp_for_loss, self._eig_w_t))
 
     def _batch_metrics(self, X, X_l, w, w_l):
         """Loss and the metric row [loss, non_penalty, penalty, eig_vals,
@@ -228,42 +243,58 @@ class EigenFunctionTask(TrainingTask):
         ])
         return loss, metrics
 
-    def _run_epoch(self, train_data, test_data):
-        train_ms = []
+    def _epoch_body(self, train_data, test_data, rows):
+        """One epoch: a step per train batch (forward, ``zero_grad``,
+        backward, optimizer step), then the test batches under ``no_grad``
+        (JAX ``eigenfunction.py:253``); every batch's metric row lands in
+        ``rows``, train batches first. It syncs nothing with the host and
+        reads the batches in place, so the card can capture it. With
+        ``set_to_none=True`` each step's backward allocates its gradients
+        (in a capture, from the graph's pool) where zeroing them in place
+        would cost a memset per parameter."""
+        ms = []
         for X, X_l, w, w_l in train_data:
             loss, metrics = self._batch_metrics(X, X_l, w, w_l)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
             self.optimizer.step()
-            train_ms.append(metrics)
-        # test batches after the epoch's training (JAX eigenfunction.py:253)
+            ms.append(metrics)
         with torch.no_grad():
-            test_ms = [self._batch_metrics(*batch)[1] for batch in test_data]
-        return torch.stack(train_ms), torch.stack(test_ms)
+            ms += [self._batch_metrics(*batch)[1] for batch in test_data]
+        torch.stack(ms, out=rows)
 
     def train(self):
         """Train the model; fills :attr:`train_loss` / :attr:`test_loss`."""
-        train_data, test_data, train_b, test_b = self._prepare_data()
+        with profile_trace(self.profile_dir, self.device):
+            self._train()
+
+    def _train(self):
+        train_data, test_data, train_b, test_b, rows = self._prepare_data()
         self._print_train_banner(train_b, test_b)
         n_metrics = len(self.loss_names)
+        nb_train = len(train_b)
         train_means, test_means = [], []
         self.loss_list = []
         self.epoch_times = []
         min_loss = float("inf")
         self.model.train()
 
+        def body():
+            self._epoch_body(train_data, test_data, rows)
+
         epoch = 0
         while epoch < self.num_epochs:
             chunk = self._next_chunk(epoch)
             t0 = time.perf_counter()
-            chunk_tr, chunk_te = [], []
-            for _ in range(chunk):
-                tr, te = self._run_epoch(train_data, test_data)
-                chunk_tr.append(tr)
-                chunk_te.append(te)
+            self._check_graph()
+            chunk_rows = torch.empty((chunk,) + rows.shape, dtype=rows.dtype,
+                                     device=rows.device)
+            for j in range(chunk):
+                self._run_epoch(body)
+                chunk_rows[j].copy_(rows)
             # one device->host fetch per chunk
-            train_cm = torch.stack(chunk_tr).cpu().numpy()
-            test_cm = torch.stack(chunk_te).cpu().numpy()
+            cm = chunk_rows.cpu().numpy()
+            train_cm, test_cm = cm[:, :nb_train], cm[:, nb_train:]
             chunk_time = (time.perf_counter() - t0) / chunk
             # cvec of the last train batch of the chunk's last epoch
             self._cvec = train_cm[-1, -1, n_metrics:].astype(int)

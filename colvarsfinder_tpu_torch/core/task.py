@@ -1,14 +1,23 @@
 r"""Training task base class (port of ``colvarsfinder_tpu/core/task.py``).
 
 The JAX package runs all epochs between two host-side events as one
-compiled program. The port runs eagerly on the device, with the batches
-gathered onto it once before the loop; per-step metrics stay in device
-tensors and reach the host once per chunk of epochs, where the JAX package
-fetches them (``core/eigenfunction.py:942``).
+compiled program (``TrainingTask.compile_multi_epoch``, a ``lax.scan`` of
+the epoch body under ``jit``). The port's counterpart is one captured CUDA
+graph per epoch: the batches are gathered onto the device once, at fixed
+addresses, and the epoch body writes its metric rows into a buffer
+allocated once. On the card the first epoch of a ``train()`` call that has
+no valid graph runs eagerly on the capture stream (it initialises Adam's
+state, the cuBLAS handles and the kernel libraries), the capture follows,
+and every later epoch is a replay (:meth:`TrainingTask._run_epoch`). A
+chunk of epochs (those up to the next checkpoint, plot or progress event)
+replays the graph once per epoch and copies the metric rows after each
+replay; the host fetches them once per chunk, where the JAX package does
+(``core/eigenfunction.py:942``). On the CPU the same epoch body runs
+eagerly.
 
 Not ported yet: streaming, the device mesh, ``shard_trajectory``, the
-compile cache, the ``unroll``/``prebatch`` switches and the compiled CV
-programs of ``export_cv=True`` (ROADMAP.md queue 1, items 12, 13 and 15).
+``unroll``/``prebatch`` switches and the compiled CV programs of
+``export_cv=True`` (ROADMAP.md queue 1, items 12, 13 and 15).
 """
 
 from __future__ import annotations
@@ -16,15 +25,16 @@ from __future__ import annotations
 import math
 import os
 from abc import ABC, abstractmethod
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .. import checkpoint
-from ..config import resolve_device
+from ..config import default_dtype, matmul_precision, resolve_device
 from ..export import export_colvar
 from ..logging_utils import MetricsWriter
+from ..ops import _cuda
 
 __all__ = ["TrainingTask", "train_test_split"]
 
@@ -48,6 +58,20 @@ def train_test_split(idx: np.ndarray, test_size: float, seed: int):
         )
     perm = np.random.RandomState(seed).permutation(n)
     return idx[perm[n_test:]], idx[perm[:n_test]]
+
+
+class CapturedEpoch(NamedTuple):
+    """One training epoch captured as a CUDA graph.
+
+    ``key`` is :meth:`TrainingTask._graph_key` at capture; ``held`` keeps
+    alive every object whose ``id`` is in it, so no other object can take
+    that ``id`` while the graph lives. ``launches`` counts the kernel
+    launches the graph holds (:func:`..ops._cuda.capture_launches`)."""
+
+    graph: object
+    launches: dict
+    key: tuple
+    held: list
 
 
 class TrainingTask(ABC):
@@ -80,8 +104,17 @@ class TrainingTask(ABC):
             same CV artifacts as the JAX package's with False
             (:func:`..export.export_colvar`)
         tensorboard: log scalars when tensorboardX is installed
+        profile_dir: if set, wrap ``train()`` in a ``torch.profiler`` trace
+            written to this directory (:func:`..logging_utils.profile_trace`)
         progress_interval: print progress at least every N epochs
     """
+
+    #: the prepared batches (:meth:`_prepare_data`) and the captured epoch
+    _prepared = None
+    _graph: Optional[CapturedEpoch] = None
+    #: run every epoch eagerly on the card too; nothing in the package sets
+    #: it (a test compares a captured run with an eager one through it)
+    _eager_on_card = False
 
     def __init__(
         self,
@@ -107,6 +140,7 @@ class TrainingTask(ABC):
         split_indices=None,
         export_cv: bool = False,
         tensorboard: bool = True,
+        profile_dir: Optional[str] = None,
         progress_interval: int = 0,
     ):
         if export_cv:
@@ -136,6 +170,7 @@ class TrainingTask(ABC):
         self.seed = seed
         self.split_indices = split_indices
         self.export_cv = export_cv
+        self.profile_dir = profile_dir
         self.progress_interval = int(progress_interval)
         self.epoch_times: list = []
         self.model_name = type(self).__name__
@@ -148,6 +183,7 @@ class TrainingTask(ABC):
     def init_model_and_optimizer(self):
         """Load :attr:`load_model_filename` when it exists, then build the
         optimizer."""
+        self._drop_graph()
         if self.load_model_filename:
             if os.path.isfile(self.load_model_filename):
                 state = torch.load(self.load_model_filename,
@@ -160,16 +196,22 @@ class TrainingTask(ABC):
             elif self.verbose:
                 print(f"model file not found: {self.load_model_filename}")
         self.optimizer = self.make_optimizer(
-            self.optimizer_name, self.model.parameters(), self.learning_rate
+            self.optimizer_name, self.model.parameters(), self.learning_rate,
+            capturable=self.device.type == "cuda",
         )
 
     @staticmethod
-    def make_optimizer(name: str, params, learning_rate: float):
+    def make_optimizer(name: str, params, learning_rate: float,
+                       capturable: bool = False):
         """Adam with betas (0.9, 0.999) and eps 1e-8 (optax's and torch's
-        defaults; ``colvarsfinder_tpu/core/task.py:304-316``), or SGD."""
+        defaults; ``colvarsfinder_tpu/core/task.py:304-316``), or SGD.
+        ``capturable=True`` (the card) keeps Adam's step count on the device
+        and computes its bias correction there, as optax does, so that a
+        CUDA graph can hold the step."""
         if name.lower() == "adam":
             return torch.optim.Adam(
-                params, lr=float(learning_rate), betas=(0.9, 0.999), eps=1e-8
+                params, lr=float(learning_rate), betas=(0.9, 0.999), eps=1e-8,
+                capturable=capturable,
             )
         if name.lower() == "sgd":
             return torch.optim.SGD(params, lr=float(learning_rate))
@@ -251,6 +293,91 @@ class TrainingTask(ABC):
         )
 
     # ------------------------------------------------------------------
+    # the captured epoch (the counterpart of the JAX compile cache)
+    def _graph_static(self):
+        """``(values, objects)`` a captured epoch depends on beyond the
+        prepared data and the optimizer: values it bakes in, and objects
+        it reads by address. Tasks override it."""
+        return (), ()
+
+    def _graph_key(self):
+        """``(key, held)``: what a captured epoch is valid for, as the JAX
+        key ``(length, numerics_key(), lr) + static`` is
+        (``colvarsfinder_tpu/core/eigenfunction.py:197``). Values compare
+        by value: the optimizer's hyperparameters (lr among them), the
+        matmul precision, the default dtype and the task's own
+        (:meth:`_graph_static`). Objects compare by identity: the prepared
+        data, the optimizer, its parameters and state tensors and the
+        task's own; ``held`` holds them for the graph."""
+        values, objects = self._graph_static()
+        opt = self.optimizer
+        held = [self._prepared, opt, *objects]
+        held += [p for g in opt.param_groups for p in g["params"]]
+        held += [t for state in opt.state.values() for t in state.values()
+                 if torch.is_tensor(t)]
+        hyper = tuple((k, repr(v)) for g in opt.param_groups
+                      for k, v in sorted(g.items()) if k != "params")
+        key = (hyper, matmul_precision(), default_dtype(), *values,
+               tuple(map(id, held)))
+        return key, held
+
+    def _drop_graph(self) -> None:
+        """Forget the captured epoch. Its memory pool is freed with the
+        graph and the gradients the graph left on the parameters."""
+        if self._graph is not None:
+            self._graph = None
+            self.model.zero_grad(set_to_none=True)
+
+    def _check_graph(self) -> None:
+        """Drop the captured epoch if anything it depends on has changed."""
+        if self._graph is not None and self._graph.key != self._graph_key()[0]:
+            self._drop_graph()
+
+    def _run_epoch(self, body) -> None:
+        """One epoch of ``body()``. The CPU runs it eagerly. The card
+        replays its captured graph; without one, it runs ``body()`` eagerly
+        on the capture stream (a real epoch, which also initialises Adam's
+        state, the cuBLAS handles and the kernel libraries) and then
+        captures it. A capture that fails raises: nothing falls back to
+        eager on the card."""
+        if self.device.type != "cuda" or self._eager_on_card:
+            body()
+        elif self._graph is not None:
+            _cuda.replay(self._graph.graph, self._graph.launches)
+        else:
+            self._graph = self._eager_then_capture(body)
+
+    def _eager_then_capture(self, body) -> CapturedEpoch:
+        current = torch.cuda.current_stream(self.device)
+        stream = torch.cuda.Stream(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            body()
+        key, held = self._graph_key()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with _cuda.capture_launches() as launches, \
+                    torch.cuda.graph(graph, stream=stream):
+                body()
+        except RuntimeError as err:
+            raise RuntimeError(
+                "capturing the training epoch as a CUDA graph failed (a host "
+                "sync or a call that capture forbids inside the step?): "
+                f"{err}"
+            ) from err
+        current.wait_stream(stream)
+        return CapturedEpoch(graph, launches, key, held)
+
+    def release_device_data(self) -> None:
+        """Drop the prepared device batches and the captured epoch with its
+        memory pool (``colvarsfinder_tpu/core/task.py:943-953``); the next
+        ``train()`` prepares the data and captures again."""
+        self._drop_graph()
+        self._prepared = None
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------------
     def save_model(self, epoch: int, description: str = "latest"):
         """Write ``model.pt`` (state dict), the per-CV text dumps, the CV
         deployment artifacts and ``train_state.pt`` under
@@ -283,9 +410,23 @@ class TrainingTask(ABC):
                                        epoch)
 
     def load_training_state(self, filename: str) -> int:
-        """Restore model and optimizer state; returns the saved epoch."""
-        return checkpoint.load_training_state(filename, self.model,
-                                              self.optimizer)
+        """Restore model and optimizer state; returns the saved epoch. The
+        optimizer's state tensors are replaced, so the captured epoch is
+        dropped."""
+        self._drop_graph()
+        epoch = checkpoint.load_training_state(filename, self.model,
+                                               self.optimizer)
+        if self.device.type == "cuda":
+            # a state saved on the CPU carries capturable=False and host
+            # step counts
+            for group in self.optimizer.param_groups:
+                if "capturable" in group:
+                    group["capturable"] = True
+            for state in self.optimizer.state.values():
+                if "step" in state:
+                    state["step"] = state["step"].to(self.device,
+                                                     torch.float32)
+        return epoch
 
     # ------------------------------------------------------------------
     @abstractmethod

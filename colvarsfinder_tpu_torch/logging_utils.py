@@ -1,16 +1,18 @@
-r"""Observability of the port: TensorBoard scalars and loss dataframes
-(from ``colvarsfinder_tpu/logging_utils.py``). Neither tensorboardX nor
-pandas is needed to train: the writer is a no-op unless tensorboardX is
-importable and asked for, and pandas is imported only to build a
-dataframe."""
+r"""Observability of the port: TensorBoard scalars, loss dataframes and
+profiler traces (from ``colvarsfinder_tpu/logging_utils.py``). Neither
+tensorboardX nor pandas is needed to train: the writer is a no-op unless
+tensorboardX is importable and asked for, and pandas is imported only to
+build a dataframe."""
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["MetricsWriter", "losses_to_dataframe"]
+__all__ = ["MetricsWriter", "losses_to_dataframe", "profile_trace"]
 
 
 class MetricsWriter:
@@ -43,6 +45,29 @@ class MetricsWriter:
     def close(self) -> None:
         if self._writer is not None:
             self._writer.close()
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str], device: torch.device):
+    """Optionally wrap a block in a ``torch.profiler`` trace of the host and,
+    on the card, the device, written to ``log_dir`` as a TensorBoard trace
+    (``<host>_<pid>.<ns>.pt.trace.json``); the counterpart of the JAX
+    package's ``jax.profiler`` trace."""
+    if log_dir is None:
+        yield
+        return
+    from torch.profiler import (
+        ProfilerActivity,
+        profile,
+        tensorboard_trace_handler,
+    )
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(str(log_dir))):
+        yield
 
 
 def losses_to_dataframe(per_epoch_means: Sequence[np.ndarray],

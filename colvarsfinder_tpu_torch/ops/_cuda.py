@@ -9,12 +9,19 @@ hash of the sources and flags, so an edited source is rebuilt.
 :func:`build_copies` builds copies of a source with textual edits (phase
 ablations, exactness checks against a variant).
 
+Each wrapper counts its launches in :data:`LAUNCHES` on the host. A CUDA
+graph replay runs no Python, so a capture is taken inside
+:func:`capture_launches`, which records what the graph holds and takes it
+back out of the counts, and every replay goes through :func:`replay`, which
+adds it.
+
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,9 +35,11 @@ __all__ = [
     "LAUNCHES",
     "build_all",
     "build_copies",
+    "capture_launches",
     "check",
     "launch_counts",
     "library",
+    "replay",
     "reset_launch_counts",
     "stream_handle",
 ]
@@ -76,6 +85,30 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict:
     return dict(LAUNCHES)
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Around a CUDA graph capture: yields a dict that is filled, on exit,
+    with the launches each wrapper counted inside (the launches the graph
+    holds), and takes them back out of :data:`LAUNCHES`, since a capture
+    runs nothing."""
+    before = dict(LAUNCHES)
+    held: dict = {}
+    try:
+        yield held
+    finally:
+        for name in LAUNCHES:
+            held[name] = LAUNCHES[name] - before[name]
+            LAUNCHES[name] = before[name]
+
+
+def replay(graph, launches: dict) -> None:
+    """Replay a captured graph and count the kernel launches it holds
+    (``launches``, from :func:`capture_launches`)."""
+    graph.replay()
+    for name, n in launches.items():
+        LAUNCHES[name] += n
 
 
 def _nvcc() -> str:

@@ -1,8 +1,9 @@
-"""PyTorch port, CUDA kernels K1-K4 against their plain PyTorch versions on
-the card. Every test here needs an NVIDIA card and ``nvcc``: it carries the
-``cuda`` marker and skips where ``torch.cuda.is_available()`` is false. This
-file imports neither JAX nor the JAX package, so it runs on a machine that
-has only PyTorch:
+"""PyTorch port on the card: CUDA kernels K1-K4 against their plain PyTorch
+versions, and training epochs captured as CUDA graphs against the same
+epochs run eagerly. Every test here needs an NVIDIA card and ``nvcc``: it
+carries the ``cuda`` marker and skips where ``torch.cuda.is_available()`` is
+false. This file imports neither JAX nor the JAX package, so it runs on a
+machine that has only PyTorch (``-s`` shows the graph-against-eager gaps):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
@@ -11,6 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from colvarsfinder_tpu_torch import (
+    EigenFunctionTask,
+    Feature,
+    FeatureLayer,
+    PreprocessingANN,
+    WeightedTrajectory,
+)
 from colvarsfinder_tpu_torch.models import EigenFunctions
 from colvarsfinder_tpu_torch.ops import _cuda
 from colvarsfinder_tpu_torch.ops.alignment import (
@@ -18,6 +26,7 @@ from colvarsfinder_tpu_torch.ops.alignment import (
     align_frames,
     kabsch_rotations_quat,
 )
+from colvarsfinder_tpu_torch.ops.features import Lambda
 from colvarsfinder_tpu_torch.ops.fused_eigen import (
     _mlp_heads,
     bwd_launch_shape,
@@ -378,3 +387,191 @@ def test_k3_head_outputs_and_k4_occupancy(dev):
     assert resident >= fwd.blocks_per_sm
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert resident * sms * fwd.tile >= 20000
+
+
+# ---------------------------------------------------------------------------
+# training epochs captured as CUDA graphs
+# ---------------------------------------------------------------------------
+
+# the main path's widths at a tenth of its batch: 5 steps of 2,000 lagged
+# pairs and one test batch of 1,200 per epoch
+G_FRAMES, G_BATCH, G_LAG, G_DT, G_K = 12_000, 2_000, 5, 0.002, 2
+G_DIMS = [30, 20, 20, 20, 1]
+G_TRAIN, G_TEST = 5, 1
+# per-atom align weights of the K1 route (masses of 1 to 16, seeded)
+G_ALIGN_W = np.random.default_rng(1).uniform(1.0, 16.0, 10)
+# the training bar of the fused step against the plain one (PERF.md §2)
+CURVE_RTOL = {"loss": 2e-3, "eig": 5e-3}
+KINDS = ["fused", "plain", "k1", "precompute"]
+
+
+def _graph_task(path, kind, epochs, **kw):
+    """``fused``: FusedAlignmentLayer + fused_step (K2, K3, K4); ``plain``:
+    AlignmentLayer('quaternion'), no kernel; ``k1``: weighted
+    AlignmentLayer('cuda') + fused_step (K1, K3, K4); ``precompute``:
+    features computed once, then fused_step (K3, K4)."""
+    rng = np.random.default_rng(0)
+    ref = rng.standard_normal((10, 3)).astype(np.float32)
+    traj = (ref[None] + 0.3 * rng.standard_normal((G_FRAMES, 10, 3))
+            ).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, G_FRAMES).astype(np.float32)
+    atoms = list(range(10))
+    if kind == "fused":
+        align = FusedAlignmentLayer(ref, atoms)
+    else:
+        align = AlignmentLayer(
+            ref, atoms, method="cuda" if kind == "k1" else "quaternion",
+            align_weights=G_ALIGN_W if kind == "k1" else None)
+    pp = PreprocessingANN(align,
+                          FeatureLayer([Feature("p", "position", atoms)]))
+    args = dict(alpha=20.0, eig_weights=[1.0, 0.2], lag_tau=G_LAG * G_DT,
+                learning_rate=0.002, save_model_every_step=0, k=G_K,
+                batch_size=G_BATCH, num_epochs=epochs, test_ratio=0.1,
+                verbose=False, tensorboard=False, seed=0, debug_mode=False,
+                fused_step=kind != "plain",
+                precompute_features=kind == "precompute",
+                progress_interval=1)
+    args.update(kw)
+    traj_obj = WeightedTrajectory(trajectory=traj, weights=w, dt=G_DT,
+                                  verbose=False)
+    return EigenFunctionTask(traj_obj, pp, EigenFunctions(G_DIMS, G_K, seed=0),
+                             str(path), **args)
+
+
+def _schedule(kind, epochs):
+    """Launches per wrapper over ``epochs``: every batch aligns X and X_l
+    (K2 or K1) and computes its stats (K3); every train step runs K4."""
+    n = epochs * (G_TRAIN + G_TEST)
+    want = dict.fromkeys(_cuda.LAUNCHES, 0)
+    if kind != "plain":
+        want.update(stats_fwd=n, stats_bwd=epochs * G_TRAIN)
+    if kind == "fused":
+        want["fused_align"] = 2 * n
+    if kind == "k1":
+        want["kabsch_qcp"] = 2 * n
+    return want
+
+
+def _train(task, epochs=None):
+    if epochs is not None:
+        task.num_epochs = epochs
+    _cuda.reset_launch_counts()
+    task.train()
+    torch.cuda.synchronize()
+    return _cuda.launch_counts()
+
+
+def _rows(task):
+    """Every batch's metric row of every epoch, train then test."""
+    return np.stack([np.concatenate(epoch) for epoch in task.loss_list])
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_captured_epochs_equal_eager_epochs(dev, tmp_path, kind):
+    graph = _graph_task(tmp_path / "graph", kind, 5)
+    eager = _graph_task(tmp_path / "eager", kind, 5)
+    eager._eager_on_card = True
+    runs = []
+    for epochs in (5, 2):
+        # a second train() call replays the same graph
+        before = graph._graph
+        counts = _train(graph, epochs)
+        assert counts == _schedule(kind, epochs) == _train(eager, epochs)
+        assert eager._graph is None
+        if before is not None:
+            assert graph._graph is before
+        runs.append((_rows(graph), _rows(eager)))
+    assert graph._graph.launches == {
+        name: n // 5 for name, n in _schedule(kind, 5).items()}
+    # each replay ran the step on new parameters: no epoch repeats the last
+    rows = runs[0][0]
+    assert all((rows[e] != rows[e - 1]).any() for e in range(1, 5))
+    got, want = (np.concatenate(r) for r in zip(*runs))
+    if kind == "fused":
+        # the same kernels in the same order, launched from a graph
+        np.testing.assert_array_equal(got, want)
+        for a, b in zip(graph.model.parameters(), eager.model.parameters()):
+            assert torch.equal(a, b)
+    else:
+        for name, cols in (("loss", slice(0, 1)), ("eig", slice(3, None))):
+            gap = float(np.max(np.abs(got[:, cols] - want[:, cols])
+                               / np.abs(want[:, cols])))
+            print(f"{kind}: graph vs eager {name}: max relative gap {gap:.3e}"
+                  f" over 7 epochs (bitwise equal: {np.array_equal(got, want)})")
+            np.testing.assert_allclose(got[:, cols], want[:, cols],
+                                       rtol=CURVE_RTOL[name])
+    np.testing.assert_array_equal(graph._cvec, eager._cvec)
+
+
+def test_resumed_run_equals_an_uninterrupted_one(dev, tmp_path):
+    whole = _graph_task(tmp_path / "whole", "fused", 5)
+    _train(whole)
+    first = _graph_task(tmp_path / "first", "fused", 2)
+    _train(first)
+    state = str(tmp_path / "state.pt")
+    first.save_training_state(1, state)
+    # loading replaces the optimizer's state tensors: the graph goes
+    first.load_training_state(state)
+    assert first._graph is None
+    resumed = _graph_task(tmp_path / "resumed", "fused", 3)
+    assert resumed.load_training_state(state) == 1
+    assert _train(resumed) == _schedule("fused", 3)
+    assert resumed._graph is not None
+    np.testing.assert_array_equal(_rows(resumed), _rows(whole)[2:])
+    for a, b in zip(resumed.model.parameters(), whole.model.parameters()):
+        assert torch.equal(a, b)
+    st_a = resumed.optimizer.state_dict()["state"]
+    st_b = whole.optimizer.state_dict()["state"]
+    for i in st_b:
+        for name in ("step", "exp_avg", "exp_avg_sq"):
+            assert torch.equal(st_a[i][name], st_b[i][name]), (i, name)
+
+
+def test_a_state_saved_on_the_cpu_resumes_on_the_card(dev, tmp_path):
+    """A CPU optimizer state carries capturable=False and host step counts;
+    loaded on the card it is made capturable, so the epoch can be captured."""
+    cpu = _graph_task(tmp_path / "cpu", "plain", 1, device="cpu")
+    cpu.train()
+    state = str(tmp_path / "state.pt")
+    cpu.save_training_state(0, state)
+    card = _graph_task(tmp_path / "card", "plain", 2)
+    assert card.load_training_state(state) == 0
+    assert all(g["capturable"] for g in card.optimizer.param_groups)
+    assert _train(card) == _schedule("plain", 2)
+    assert card._graph is not None and np.isfinite(card.train_loss).all()
+
+
+def test_release_device_data_frees_and_captures_again(dev, tmp_path):
+    task = _graph_task(tmp_path, "fused", 2)
+    _train(task)
+    held = torch.cuda.memory_allocated()
+    task.release_device_data()
+    assert task._graph is None and task._prepared is None
+    freed = held - torch.cuda.memory_allocated()
+    # at least the gathered batches: 2 x 12,000 frames x 30 floats
+    assert freed >= 2 * (G_TRAIN * G_BATCH + 1_200) * 30 * 4
+    assert _train(task, 2) == _schedule("fused", 2)
+    assert task._graph is not None and np.isfinite(task.train_loss).all()
+
+
+def test_profile_dir_traces_the_replays(dev, tmp_path):
+    task = _graph_task(tmp_path / "run", "fused", 3,
+                       profile_dir=str(tmp_path / "prof"))
+    assert _train(task) == _schedule("fused", 3)
+    (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    text = trace.read_text()
+    for name in ("cudaGraphLaunch", "stats_fwd_kernel", "stats_bwd_kernel",
+                 "fused_align"):
+        assert name in text, name
+
+
+def test_a_host_sync_in_the_step_fails_the_capture(dev, tmp_path):
+    """Eager epochs may sync with the host; a captured one cannot, and
+    train() raises instead of carrying on eagerly."""
+    task = _graph_task(tmp_path, "plain", 3)
+    task._pp_for_loss = Lambda(
+        lambda x: task.preprocessing_layer(x) * float(x.abs().max() > 0))
+    with pytest.raises(RuntimeError, match="CUDA graph"):
+        _train(task)
+    assert task._graph is None
+    assert not hasattr(task, "train_loss")
