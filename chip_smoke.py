@@ -40,7 +40,20 @@ Phases (each raises on failure; nothing is caught):
 5. steady-state training throughput of both steps, and over two more
    epochs of each under torch.profiler: wall and device time, device
    activities per step, the device's busy share and the graph replays
-   (``cudaGraphLaunch`` calls) per epoch.
+   (``cudaGraphLaunch`` calls) per epoch;
+6. the Dirichlet form on phase 4's frames through FusedAlignmentLayer:
+   the generator EigenFunctionTask (lag 0, beta 1, a seeded non-uniform
+   diag_coeff) on the Gram path, on the vjp path (K2's forward, its
+   backward differentiated twice) and with the Gram matrices in bfloat16,
+   and the CommittorTask (``create_sequential_nn``, regions below the 5%
+   and above the 95% quantile of the first aligned coordinate) on the Gram
+   and vjp paths; each run through the captured epoch and again eagerly,
+   bit for bit; vjp against Gram within the training bar, bf16 against
+   float32 Gram within 2e-2; the generator loss's parameter gradient
+   through K2 at the main path's batch against the plain layer's within
+   K4's bar; samples/s, the Gram precompute's time and bytes, K1 and K2
+   launches per batch, and device time and activities per step under
+   torch.profiler.
 
 The second-to-last line lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -102,6 +115,14 @@ CURVE_RTOL = {"loss": 2e-3, "eig_1": 5e-3}
 # the saved TorchScript CV on the CPU against the trained CV model
 # (tests/test_torch_deploy.py's bar)
 SCRIPTED_ATOL = 2e-6
+# phase 6: the generator's beta and diffusion diagonal (seeded, over the
+# 30 flattened coordinates), the committor's regions (quantiles of the first
+# aligned coordinate), and the bar of bf16 Gram storage against float32
+# (tests/test_gram_dtype.py)
+GEN_BETA = 1.0
+GEN_DIAG = np.random.default_rng(2).uniform(0.5, 2.0, 3 * N_ATOMS)
+COMMITTOR_Q = (0.05, 0.95)
+BF16_RTOL = 2e-2
 
 KERNELS = {
     "kabsch_qcp": ("colvarsfinder_tpu_torch/csrc/kabsch.cu",
@@ -677,6 +698,210 @@ def phase_profile(runs, epochs=2, chunk=10):
     return out
 
 
+def make_dirichlet(cvf, kind, traj_obj, ref, path, epochs, regions=None,
+                   **kw):
+    """A generator EigenFunctionTask (``gen_*``) or a CommittorTask
+    (``com_*``) through FusedAlignmentLayer and position features, on the
+    Gram path unless ``kind`` ends in ``vjp``."""
+    atoms = list(range(N_ATOMS))
+    pp = cvf.PreprocessingANN(
+        cvf.FusedAlignmentLayer(ref, atoms),
+        cvf.FeatureLayer([cvf.Feature("p", "position", atoms)]))
+    args = dict(learning_rate=LR, save_model_every_step=0,
+                batch_size=BATCH, num_epochs=epochs, test_ratio=TEST_RATIO,
+                verbose=False, tensorboard=False, seed=0, debug_mode=False,
+                progress_interval=1, diag_coeff=GEN_DIAG, beta=GEN_BETA,
+                gram_pp=not kind.endswith("vjp"), **kw)
+    if kind.startswith("gen"):
+        return cvf.EigenFunctionTask(
+            traj_obj, pp, cvf.EigenFunctions(list(DIMS), K, seed=0), path,
+            alpha=ALPHA, eig_weights=EIG_W, lag_tau=0.0, k=K,
+            gram_dtype="bfloat16" if kind == "gen_bf16" else None, **args)
+    return cvf.CommittorTask(
+        traj_obj, pp, cvf.create_sequential_nn(list(DIMS), seed=0), path,
+        region_a=regions[0], region_b=regions[1], alpha=ALPHA, **args)
+
+
+def dirichlet_profile(task, epochs=2):
+    """Device time and device activities per training step over ``epochs``
+    more epochs (replays) under torch.profiler, and the device activities
+    that take the most time."""
+    task.num_epochs = epochs
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        task.train()
+        torch.cuda.synchronize()
+    kernels = device_activities(prof)
+    steps = epochs * len(task._prepare_data()[0])
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return (sum(e.self_device_time_total for e in kernels) * 1e-3 / steps,
+            sum(e.count for e in kernels) / steps,
+            [(e.self_device_time_total / steps, e.count / steps, e.key)
+             for e in top])
+
+
+def second_order_check(cvf, ref, traj_np, w_np):
+    """The generator loss's parameter gradient at the main path's batch
+    through FusedAlignmentLayer (K2's forward, its backward recorded and
+    differentiated again) against the same loss through
+    AlignmentLayer(method='quaternion'); the gradient of the Dirichlet
+    quotients alone must be nonzero."""
+    from colvarsfinder_tpu_torch.core.losses import eigen_loss
+
+    dev = torch.device("cuda")
+    atoms = list(range(N_ATOMS))
+    X = torch.from_numpy(traj_np[:BATCH]).to(dev)
+    w = torch.from_numpy(w_np[:BATCH]).to(dev)
+    dc = torch.from_numpy(GEN_DIAG.astype(np.float32)).to(dev)
+    grads = {}
+    for name, align in (("fused", cvf.FusedAlignmentLayer(ref, atoms)),
+                        ("plain", cvf.AlignmentLayer(ref, atoms))):
+        pp = cvf.PreprocessingANN(
+            align, cvf.FeatureLayer([cvf.Feature("p", "position", atoms)]))
+        pp = pp.to(dev)
+        model = cvf.EigenFunctions(list(DIMS), K, seed=0, device=dev)
+        loss, aux = eigen_loss(model, pp, X, w, None, None, k=K,
+                               alpha=ALPHA, eig_w=EIG_W, beta=GEN_BETA,
+                               diag_coeff=dc, lag_idx=0, traj_dt=DT,
+                               sort_eigvals=True)
+        params = list(model.parameters())
+        g_dir = torch.autograd.grad(aux.non_penalty_loss, params,
+                                    retain_graph=True)
+        g_all = torch.autograd.grad(loss, params)
+        grads[name] = (g_all, g_dir)
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        check_close("stats_bwd", list(grads["fused"][i]),
+                    list(grads["plain"][i]))
+    norm = math.sqrt(sum(float((g * g).sum()) for g in grads["fused"][1]))
+    err = max_err(list(grads["fused"][0]), list(grads["plain"][0]))
+    log(f"  K2 second order, B={BATCH}: generator loss gradient through "
+        f"FusedAlignmentLayer vs AlignmentLayer('quaternion'): max |diff| "
+        f"{err:.3e} (tolerance {TOL['stats_bwd']}); norm of the Dirichlet "
+        f"quotients' gradient through K2 {norm:.4e}")
+    if not norm > 0:
+        raise AssertionError("K2: the Dirichlet term has no gradient")
+    return err, norm
+
+
+def phase_dirichlet(card, ref, traj_np, w_np, cvf):
+    """Phase 6: the generator and the committor on phase 4's frames."""
+    from colvarsfinder_tpu_torch.ops import _cuda
+    from colvarsfinder_tpu_torch.ops.alignment import align_frames
+
+    dev = torch.device("cuda")
+    traj_obj = cvf.WeightedTrajectory(trajectory=traj_np, weights=w_np,
+                                      dt=DT, verbose=False)
+    with torch.no_grad():
+        first = align_frames(torch.from_numpy(traj_np).to(dev),
+                             torch.from_numpy(ref - ref.mean(0)).to(dev),
+                             torch.arange(N_ATOMS, device=dev))[:, 0, 0]
+    c = first.cpu().numpy()
+    lo, hi = np.quantile(c, COMMITTOR_Q)
+    regions = (c < lo, c > hi)
+    log(f"  committor regions: {int(regions[0].sum())} frames in A, "
+        f"{int(regions[1].sum())} in B")
+    runs, out = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("gen_gram", "gen_vjp", "gen_bf16", "com_gram",
+                     "com_vjp"):
+            pair = []
+            for eager in (False, True):
+                label = kind + (" eager" if eager else "")
+                task = make_dirichlet(cvf, kind, traj_obj, ref,
+                                      f"{tmp}/{label}", EPOCHS, regions)
+                task._eager_on_card = eager
+                torch.cuda.synchronize()
+                _cuda.reset_launch_counts()
+                t0 = time.perf_counter()
+                data = task._prepare_data()
+                torch.cuda.synchronize()
+                prep_s = time.perf_counter() - t0
+                prep_counts = _cuda.launch_counts()
+                _cuda.reset_launch_counts()
+                t0 = time.perf_counter()
+                task.train()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = _cuda.launch_counts()
+                tl = task.train_loss
+                if not np.isfinite(tl).all():
+                    raise AssertionError(f"{label}: non-finite metrics")
+                if not tl[-1, 0] < tl[0, 0]:
+                    raise AssertionError(f"{label}: loss did not fall: "
+                                         f"{tl[:, 0]}")
+                if (task._graph is None) != eager:
+                    raise AssertionError(f"{label}: captured graph "
+                                         f"{task._graph is not None}")
+                if task._gram != (not kind.endswith("vjp")):
+                    raise AssertionError(f"{label}: Gram path {task._gram}")
+                nb = len(data[0]) + len(data[1])
+                steady = statistics.median(task.epoch_times[2:])
+                m_bytes = sum(b[1].numel() * b[1].element_size()
+                              for b in data[0] + data[1]) if task._gram else 0
+                want = 0 if task._gram else EPOCHS * nb
+                if counts != {**dict.fromkeys(counts, 0),
+                              "fused_align": want}:
+                    raise AssertionError(f"{label}: launches {counts}, the "
+                                         f"schedule implies {want} K2")
+                row = dict(samples_per_s=len(data[0]) * BATCH / steady,
+                           wall_s=wall, prepare_s=prep_s, gram_bytes=m_bytes,
+                           k1_per_batch=counts["kabsch_qcp"] / (EPOCHS * nb),
+                           k2_per_batch=counts["fused_align"] / (EPOCHS * nb),
+                           k2_in_prepare=prep_counts["fused_align"])
+                log(f"  {label:14s}: {EPOCHS} epochs in {wall:.2f} s, "
+                    f"{row['samples_per_s']:,.0f} samples/s, loss "
+                    f"{tl[0, 0]:.5f} -> {tl[-1, 0]:.5f}; batches prepared in "
+                    f"{prep_s:.3f} s (Gram matrices {m_bytes / 1e6:.1f} MB, "
+                    f"{row['k2_in_prepare']} K2 launches); per batch "
+                    f"{row['k1_per_batch']:g} K1, {row['k2_per_batch']:g} K2 "
+                    f"launches ({card})")
+                if not eager:
+                    out[kind] = row
+                pair.append(task)
+            graph, eager_task = pair
+            same = all(np.array_equal(a, b)
+                       for ea, eb in zip(graph.loss_list, eager_task.loss_list)
+                       for a, b in zip(ea, eb))
+            same &= all(torch.equal(a, b) for a, b in zip(
+                graph.model.parameters(), eager_task.model.parameters()))
+            log(f"  {kind} (graph) vs eager, {EPOCHS} epochs: every metric "
+                f"row and final parameter bit for bit equal: {same}")
+            if not same:
+                raise AssertionError(f"{kind}: the captured epochs differ "
+                                     "from the eager ones")
+            runs[kind] = graph
+
+        bars = (("gen_vjp", "gen_gram", ((0, "loss"), (3, "eig_1"))),
+                ("com_vjp", "com_gram", ((0, "loss"), (1, "dirichlet"))),
+                ("gen_bf16", "gen_gram", ((0, "loss"),)))
+        for a_kind, b_kind, cols in bars:
+            for col, name in cols:
+                a = runs[a_kind].train_loss[:, col]
+                b = runs[b_kind].train_loss[:, col]
+                rtol = (BF16_RTOL if a_kind == "gen_bf16"
+                        else CURVE_RTOL.get(name, CURVE_RTOL["eig_1"]))
+                rel = float(np.max(np.abs(a - b) / np.abs(b)))
+                log(f"  {a_kind} vs {b_kind} {name}: max relative difference "
+                    f"{rel:.3e} over {EPOCHS} epochs (tolerance {rtol})")
+                np.testing.assert_allclose(a, b, rtol=rtol)
+        q = runs["com_gram"].committor_values(traj_np[:1000])
+        if q.shape != (1000,) or not ((q > 0) & (q < 1)).all():
+            raise AssertionError("committor values outside (0, 1)")
+        for kind in ("gen_gram", "gen_vjp", "com_gram"):
+            ms, acts, top = dirichlet_profile(runs[kind])
+            out[kind].update(device_ms_per_step=ms,
+                             device_activities_per_step=acts)
+            log(f"  {kind}: profiled, device {ms:.4f} ms/step, {acts:.1f} "
+                f"device activities/step ({card})")
+            for us, count, key in top:
+                log(f"    {us:9.1f} us/step {count:7.1f}x/step  {key[:70]}")
+    err, norm = second_order_check(cvf, ref, traj_np, w_np)
+    out["k2_second_order"] = dict(max_abs_err=err, dirichlet_grad_norm=norm)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -711,6 +936,8 @@ def main():
         f"(K2+K3+K4) {runs['fused']['sps']:,.0f} samples/s, plain step "
         f"{runs['plain']['sps']:,.0f} samples/s")
     prof = phase_profile(runs)
+    log("phase 6: the generator and the committor (Dirichlet form)")
+    dirichlet = phase_dirichlet(card, ref, traj_np, w_np, cvf)
     launches = {"kabsch_qcp": runs["k1"]["counts"]["kabsch_qcp"]}
     for name in ("fused_align", "stats_fwd", "stats_bwd"):
         launches[name] = runs["fused"]["counts"][name]
@@ -730,6 +957,7 @@ def main():
         "throughput_samples_per_s": {"fused": runs["fused"]["sps"],
                                      "plain": runs["plain"]["sps"]},
         "profile": prof,
+        "dirichlet": dirichlet,
     }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -1,19 +1,19 @@
 r"""colvarsfinder-tpu, PyTorch/CUDA port.
 
 A second package beside the JAX reference ``colvarsfinder_tpu``: the same
-API for transfer-operator eigenfunction training, written in PyTorch, with
-the JAX package's four Pallas TPU kernels rewritten as CUDA kernels for
-Hopper (``csrc/``). It imports neither JAX nor the JAX package. Entry
+API for eigenfunction training (generator and transfer operator) and
+committor training, written in PyTorch, with the JAX package's four Pallas
+TPU kernels rewritten as CUDA kernels for Hopper (``csrc/``). It imports neither JAX nor the JAX package. Entry
 points run on ``cuda`` unless the caller passes ``device='cpu'``; on CPU
 tensors every kernel wrapper runs its plain PyTorch version.
 """
 
 from . import config, core, models, ops, utils
-from .core import EigenFunctionTask, TrainingTask
+from .core import CommittorTask, EigenFunctionTask, TrainingTask
 from .deploy import load_numpy_cv, save_numpy_cv
 from .deploy_torch import export_torchscript_cv, torchscript_from_numpy_cv
 from .export import ColvarModel, export_colvar
-from .models import EigenFunctions
+from .models import EigenFunctions, Sequential, create_sequential_nn
 from .ops import (
     AlignmentLayer,
     Feature,
@@ -26,15 +26,18 @@ from .utils import WeightedTrajectory, calc_weights
 __all__ = [
     "AlignmentLayer",
     "ColvarModel",
+    "CommittorTask",
     "EigenFunctionTask",
     "EigenFunctions",
     "Feature",
     "FeatureLayer",
     "FusedAlignmentLayer",
     "PreprocessingANN",
+    "Sequential",
     "TrainingTask",
     "WeightedTrajectory",
     "calc_weights",
+    "create_sequential_nn",
     "export_colvar",
     "export_torchscript_cv",
     "load_numpy_cv",

@@ -24,6 +24,8 @@ from __future__ import annotations
 
 import math
 import os
+import time
+import warnings
 from abc import ABC, abstractmethod
 from typing import NamedTuple, Optional
 
@@ -33,8 +35,9 @@ import torch
 from .. import checkpoint
 from ..config import default_dtype, matmul_precision, resolve_device
 from ..export import export_colvar
-from ..logging_utils import MetricsWriter
+from ..logging_utils import MetricsWriter, profile_trace
 from ..ops import _cuda
+from ..ops.features import Identity
 
 __all__ = ["TrainingTask", "train_test_split"]
 
@@ -115,6 +118,9 @@ class TrainingTask(ABC):
     #: run every epoch eagerly on the card too; nothing in the package sets
     #: it (a test compares a captured run with an eager one through it)
     _eager_on_card = False
+    #: the Gram path stores one [B, d_r, d_r] tensor per batch; above this
+    #: total it falls back to the vjp path (the JAX package's limit)
+    GRAM_AUTO_LIMIT_BYTES = 4 << 30
 
     def __init__(
         self,
@@ -293,6 +299,61 @@ class TrainingTask(ABC):
         )
 
     # ------------------------------------------------------------------
+    # the Dirichlet form of the generator and the committor
+    def _diag_coeff_tensor(self, diag_coeff) -> torch.Tensor:
+        """The diffusion diagonal over the flattened state dims (default
+        ones) on the device (``colvarsfinder_tpu/core/eigenfunction.py:
+        556-568``)."""
+        tot_dim = int(np.prod(np.shape(self.traj_obj.trajectory)[1:]))
+        if diag_coeff is None:
+            return torch.ones(tot_dim, dtype=default_dtype(),
+                              device=self.device)
+        dc = torch.as_tensor(np.asarray(diag_coeff), dtype=default_dtype())
+        dc = dc.reshape(-1)
+        if dc.shape[0] != tot_dim:
+            raise ValueError(
+                f"diag_coeff should be a 1d tensor of length {tot_dim}, "
+                f"current shape: {tuple(dc.shape)}"
+            )
+        return dc.to(self.device)
+
+    def _resolve_gram_request(self, gram_pp, applicable: bool) -> None:
+        """The Gram path is requested by ``gram_pp``, or by default where it
+        applies and the preprocessing layer is not the identity; the width
+        of the features it needs is taken from one frame here."""
+        self._gram_explicit = gram_pp is not None
+        if gram_pp is None:
+            gram_pp = applicable and not isinstance(self._pp_for_loss,
+                                                    Identity)
+        self._gram_requested = bool(gram_pp)
+        self._gram = False  # resolved with the batches (_resolve_gram)
+        if self._gram_requested:
+            with torch.no_grad():
+                feats = self._pp_for_loss(self._traj[:1])
+            self._d_r = feats.reshape(1, -1).shape[1]
+
+    def _resolve_gram(self, train_b, test_b) -> None:
+        """Take the Gram path where requested and its [B, d_r, d_r] tensors
+        fit in ``GRAM_AUTO_LIMIT_BYTES``; warn where an explicit
+        ``gram_pp=True`` cannot be honoured
+        (``colvarsfinder_tpu/core/eigenfunction.py:744-760, 857-865``)."""
+        self._gram = self._gram_requested
+        if self._gram:
+            n_rows = train_b.size + test_b.size
+            m_bytes = n_rows * self._d_r**2 * self._traj.element_size()
+            if m_bytes > self.GRAM_AUTO_LIMIT_BYTES:
+                self._gram = False
+                if self.verbose:
+                    print(f"gram_pp: per-batch Gram tensors would need "
+                          f"{m_bytes / 2**30:.1f} GiB; falling back to the "
+                          "vjp path", flush=True)
+        if self._gram_requested and self._gram_explicit and not self._gram:
+            warnings.warn(
+                "gram_pp=True could not be honored (the Gram tensors exceed "
+                "GRAM_AUTO_LIMIT_BYTES); training uses the vjp path"
+            )
+
+    # ------------------------------------------------------------------
     # the captured epoch (the counterpart of the JAX compile cache)
     def _graph_static(self):
         """``(values, objects)`` a captured epoch depends on beyond the
@@ -429,9 +490,130 @@ class TrainingTask(ABC):
         return epoch
 
     # ------------------------------------------------------------------
+    # the epoch loop shared by the tasks
     @abstractmethod
+    def _prepare_data(self):
+        """Batches gathered onto the device once, and the buffer of an
+        epoch's metric rows: ``(train, test, train_b, test_b, rows)``, with
+        a tuple of tensors per batch for :meth:`_batch_metrics` and
+        ``rows`` [nb_train + nb_test, width]. A captured epoch reads and
+        writes them in place."""
+
+    @abstractmethod
+    def _batch_metrics(self, *batch):
+        """``(loss, row)`` of one batch: the scalar loss and its metric row,
+        whose first ``len(self.loss_names)`` entries are the metrics."""
+
+    def _metric_rows(self, nb: int, width: int) -> torch.Tensor:
+        """The buffer of one epoch's metric rows."""
+        return torch.empty((nb, width), dtype=self._weights.dtype,
+                           device=self.device)
+
+    def _chunk_fetched(self, train_cm: np.ndarray) -> None:
+        """Called with a chunk's train rows [chunk, nb_train, width] once
+        they reach the host."""
+
+    def _epoch_body(self, train_data, test_data, rows):
+        """One epoch: a step per train batch (forward, ``zero_grad``,
+        backward, optimizer step), then the test batches under ``no_grad``
+        (JAX ``eigenfunction.py:253``; a Dirichlet loss still takes its
+        input gradients there, and records nothing); every batch's metric
+        row lands in ``rows``, train batches first. It syncs nothing with
+        the host and reads the batches in place, so the card can capture
+        it. With ``set_to_none=True`` each step's backward allocates its
+        gradients (in a capture, from the graph's pool) where zeroing them
+        in place would cost a memset per parameter."""
+        ms = []
+        for batch in train_data:
+            loss, metrics = self._batch_metrics(*batch)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            self.optimizer.step()
+            ms.append(metrics)
+        with torch.no_grad():
+            ms += [self._batch_metrics(*batch)[1] for batch in test_data]
+        torch.stack(ms, out=rows)
+
     def train(self):
-        """Train the model."""
+        """Train the model; fills :attr:`train_loss` / :attr:`test_loss`
+        (per-epoch mean metrics with columns :attr:`loss_names`)."""
+        with profile_trace(self.profile_dir, self.device):
+            self._train()
+
+    def _train(self):
+        train_data, test_data, train_b, test_b, rows = self._prepare_data()
+        self._print_train_banner(train_b, test_b)
+        n_metrics = len(self.loss_names)
+        nb_train = len(train_b)
+        train_means, test_means = [], []
+        self.loss_list = []
+        self.epoch_times = []
+        min_loss = float("inf")
+        self.model.train()
+
+        def body():
+            self._epoch_body(train_data, test_data, rows)
+
+        epoch = 0
+        while epoch < self.num_epochs:
+            chunk = self._next_chunk(epoch)
+            t0 = time.perf_counter()
+            self._check_graph()
+            chunk_rows = torch.empty((chunk,) + rows.shape, dtype=rows.dtype,
+                                     device=rows.device)
+            for j in range(chunk):
+                self._run_epoch(body)
+                chunk_rows[j].copy_(rows)
+            # one device->host fetch per chunk
+            cm = chunk_rows.cpu().numpy()
+            train_cm, test_cm = cm[:, :nb_train], cm[:, nb_train:]
+            chunk_time = (time.perf_counter() - t0) / chunk
+            self._chunk_fetched(train_cm)
+
+            for j in range(chunk):
+                train_m = train_cm[j, :, :n_metrics]
+                test_m = test_cm[j, :, :n_metrics]
+                self.loss_list.append([train_m, test_m])
+                train_means.append(train_m.mean(axis=0))
+                test_means.append(test_m.mean(axis=0))
+                self.writer.add_scalars_split(
+                    self.loss_names, train_means[-1], test_means[-1],
+                    epoch + j,
+                )
+                self.epoch_times.append(chunk_time)
+            epoch += chunk
+            e = epoch - 1
+            self._print_progress(epoch, float(train_means[-1][0]), chunk_time)
+
+            if (self.save_model_every_step > 0
+                    and e % self.save_model_every_step
+                    == self.save_model_every_step - 1):
+                self.save_model(e)
+                last_loss = float(train_cm[-1, -1, 0])
+                if last_loss < min_loss:  # reference quirk: last-batch loss
+                    min_loss = last_loss
+                    self.save_model(e, "best")
+
+            if (self.plot_frequency > 0
+                    and e % self.plot_frequency == self.plot_frequency - 1
+                    and self.plot_class is not None):
+                self.plot_class.plot(self.colvar_model(), epoch=e)
+
+        shape = (0, n_metrics)
+        self.train_loss = np.stack(train_means) if train_means else np.zeros(shape)
+        self.test_loss = np.stack(test_means) if test_means else np.zeros(shape)
+
+    @property
+    def train_loss_df(self):
+        from ..logging_utils import losses_to_dataframe
+
+        return losses_to_dataframe(list(self.train_loss), self.loss_names)
+
+    @property
+    def test_loss_df(self):
+        from ..logging_utils import losses_to_dataframe
+
+        return losses_to_dataframe(list(self.test_loss), self.loss_names)
 
     @abstractmethod
     def colvar_model(self):

@@ -747,7 +747,7 @@ def build_spec(obj: Any, params_out: dict, prefix: str = "n0_") -> dict:
     dependency-free representation (``Lambda``, ``FusedAlignmentLayer``).
     """
     from .export import ColvarModel
-    from .models import EigenFunctions
+    from .models import EigenFunctions, Sequential
     from .ops import AlignmentLayer, FeatureLayer, Identity, PreprocessingANN
 
     if obj is None or isinstance(obj, Identity):
@@ -797,6 +797,9 @@ def build_spec(obj: Any, params_out: dict, prefix: str = "n0_") -> dict:
         if obj.box is not None:
             node["box"] = list(obj.box)
         return node
+    if isinstance(obj, Sequential):
+        return _mlp_node(obj.params, obj.activation, params_out, prefix,
+                         "mlp")
     if isinstance(obj, EigenFunctions):
         return _mlp_node(obj.params, obj.activation, params_out, prefix,
                          "stacked_mlp")

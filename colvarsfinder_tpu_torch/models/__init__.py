@@ -3,7 +3,12 @@
 from .eigen import EigenFunctions
 from .module import (
     ACTIVATIONS,
+    Sequential,
+    create_sequential_nn,
     linear_init,
+    mlp_apply,
+    mlp_init,
+    params_from_numpy,
     resolve_activation,
     stacked_mlp_apply,
     stacked_mlp_init,
@@ -12,7 +17,12 @@ from .module import (
 __all__ = [
     "ACTIVATIONS",
     "EigenFunctions",
+    "Sequential",
+    "create_sequential_nn",
     "linear_init",
+    "mlp_apply",
+    "mlp_init",
+    "params_from_numpy",
     "resolve_activation",
     "stacked_mlp_apply",
     "stacked_mlp_init",

@@ -1,5 +1,5 @@
-r"""Parameter init and stacked-MLP evaluation (port of
-``colvarsfinder_tpu/models/module.py``).
+r"""Parameter init, plain and stacked MLPs, and the feedforward network
+:class:`Sequential` (port of ``colvarsfinder_tpu/models/module.py``).
 
 Conventions are those of the JAX package, which in turn follows
 ``torch.nn.Linear``: a weight is ``[d_out, d_in]`` and ``y = x @ W.T + b``;
@@ -13,16 +13,23 @@ from __future__ import annotations
 import math
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
+from torch import nn
 
 from ..config import default_dtype
 
 __all__ = [
     "ACTIVATIONS",
-    "resolve_activation",
+    "Sequential",
+    "create_sequential_nn",
     "linear_init",
-    "stacked_mlp_init",
+    "mlp_apply",
+    "mlp_init",
+    "params_from_numpy",
+    "resolve_activation",
     "stacked_mlp_apply",
+    "stacked_mlp_init",
 ]
 
 
@@ -85,23 +92,46 @@ def linear_init(
     return {"weight": weight.to(device), "bias": bias.to(device)}
 
 
+def mlp_init(
+    layer_dims: Sequence[int], *, generator: torch.Generator, dtype=None,
+    device=None,
+) -> tuple:
+    """Parameters of a feedforward net with the given layer dims, one
+    ``{'weight', 'bias'}`` dict per linear layer
+    (``colvarsfinder_tpu/models/module.py:119-134``)."""
+    if len(layer_dims) < 2:
+        raise ValueError(
+            "at least 2 layers are needed to define a neural network "
+            f"(length={len(layer_dims)})"
+        )
+    return tuple(
+        linear_init(layer_dims[i], layer_dims[i + 1], generator=generator,
+                    dtype=dtype, device=device)
+        for i in range(len(layer_dims) - 1)
+    )
+
+
+def mlp_apply(params: Sequence[dict], x: torch.Tensor,
+              activation: str) -> torch.Tensor:
+    """Apply an MLP: the activation between layers, none after the last."""
+    act = ACTIVATIONS[activation]
+    h = x
+    n = len(params)
+    for i, layer in enumerate(params):
+        h = torch.nn.functional.linear(h, layer["weight"], layer["bias"])
+        if i < n - 1:
+            h = act(h)
+    return h
+
+
 def stacked_mlp_init(
     layer_dims: Sequence[int], k: int, *, generator: torch.Generator,
     dtype=None, device=None,
 ) -> tuple:
     """k independent MLPs stored stacked along a leading head axis:
     per layer ``{'weight': [k, d_out, d_in], 'bias': [k, d_out]}``."""
-    if len(layer_dims) < 2:
-        raise ValueError(
-            "at least 2 layers are needed to define a neural network "
-            f"(length={len(layer_dims)})"
-        )
     per_net = [
-        [
-            linear_init(layer_dims[i], layer_dims[i + 1],
-                        generator=generator, dtype=dtype, device=device)
-            for i in range(len(layer_dims) - 1)
-        ]
+        mlp_init(layer_dims, generator=generator, dtype=dtype, device=device)
         for _ in range(k)
     ]
     return tuple(
@@ -141,3 +171,88 @@ def stacked_mlp_apply(
             h = act(h)
     h = h.transpose(0, 1).reshape(x.shape[0], -1)
     return h[0] if squeeze else h
+
+
+class _Linear(nn.Module):
+    """One linear layer holding ``weight`` [d_out, d_in] and ``bias``."""
+
+    def __init__(self, weight: torch.Tensor, bias: torch.Tensor):
+        super().__init__()
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias)
+
+
+class Sequential(nn.Module):
+    """A feedforward network: linear layers with ``activation`` between
+    them and none after the last (``colvarsfinder_tpu/models/module.py:
+    280-326``; the reference's ``create_sequential_nn``). The layers are
+    submodules ``'1'``, ``'2'``, ..., so the parameters are named
+    ``'1.weight'``, ``'1.bias'``, ... as in the reference."""
+
+    def __init__(self, params: Sequence[dict], activation="tanh"):
+        super().__init__()
+        self.activation = resolve_activation(activation)
+        for i, layer in enumerate(params):
+            self.add_module(str(i + 1), _Linear(layer["weight"],
+                                                layer["bias"]))
+        self.layer_dims = (int(params[0]["weight"].shape[1]),) + tuple(
+            int(layer["weight"].shape[0]) for layer in params)
+
+    @property
+    def params(self) -> tuple:
+        """Per-layer ``{'weight', 'bias'}`` dicts (the JAX layout)."""
+        return tuple({"weight": m.weight, "bias": m.bias}
+                     for m in self.children())
+
+    @property
+    def num_layers(self) -> int:
+        return len(self.layer_dims) - 1
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return mlp_apply(self.params, x, self.activation)
+
+    def get_params_of_cv(self, cv_idx: int):
+        """Named parameters of output ``cv_idx`` as one CV: every layer in
+        full but the last, which is sliced to the CV's row
+        (``colvarsfinder_tpu/models/ae.py:34-55``)."""
+        encoded_dim = self.layer_dims[-1]
+        if not 0 <= cv_idx < encoded_dim:
+            raise ValueError(
+                f"index {cv_idx} exceeded the range [0, {encoded_dim - 1}]!"
+            )
+        out = []
+        for i, layer in enumerate(self.params):
+            w, b = layer["weight"], layer["bias"]
+            if i == self.num_layers - 1:
+                w, b = w[cv_idx:cv_idx + 1], b[cv_idx:cv_idx + 1]
+            out.append([f"{i + 1}.weight", w])
+            out.append([f"{i + 1}.bias", b])
+        return out
+
+
+def create_sequential_nn(
+    layer_dims: Sequence[int], activation="tanh", *, seed: int = 0,
+    generator: torch.Generator | None = None, dtype=None,
+) -> Sequential:
+    """A feedforward network with freshly drawn weights
+    (``colvarsfinder_tpu/models/module.py:329-346``); a ``torch.Generator``
+    wins over ``seed``."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(seed)
+    params = mlp_init(layer_dims, generator=generator, dtype=dtype)
+    return Sequential(params, activation)
+
+
+def params_from_numpy(named: dict, layer_dims,
+                      activation="tanh") -> Sequential:
+    """A :class:`Sequential` from torch-style named parameters
+    ``{'1.weight': [d_out, d_in], '1.bias': [d_out], ...}`` given as numpy
+    arrays, e.g. those of a JAX ``Sequential``'s ``named_parameters()``
+    (``colvarsfinder_tpu/models/module.py:349-366``)."""
+    params = [
+        {name: torch.tensor(np.asarray(named[f"{i + 1}.{name}"]),
+                            dtype=default_dtype())
+         for name in ("weight", "bias")}
+        for i in range(len(layer_dims) - 1)
+    ]
+    return Sequential(params, activation)

@@ -181,9 +181,25 @@ def fused_align_launch(x: torch.Tensor, ref: torch.Tensor,
     return out
 
 
+def _plain_vjp(plain, x, g):
+    """The vjp of the plain formulation ``plain`` at the saved input ``x``
+    along ``g``, as the JAX ``custom_vjp`` backward is ``jax.vjp`` of it.
+    Inside an autograd ``backward`` grad mode is on exactly when the caller
+    asked for ``create_graph=True``; then the vjp is recorded against ``x``
+    and ``g``, so that it can be differentiated once more (the generator
+    loss differentiates input gradients by the parameters). Otherwise it
+    is computed on a detached copy and records nothing."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return torch.autograd.grad(plain(x), x, g, create_graph=True)[0]
+    with torch.enable_grad():
+        xd = x.detach().requires_grad_()
+        return torch.autograd.grad(plain(xd), xd, g)[0]
+
+
 class _KabschQCP(torch.autograd.Function):
     """K1 on C in float32, R in C's dtype; the backward differentiates the
-    SVD Kabsch at C in C's own dtype (``kabsch_pallas.py:118-126``)."""
+    SVD Kabsch at C in C's own dtype (``kabsch_pallas.py:118-126``), twice
+    where asked (:func:`_plain_vjp`)."""
 
     @staticmethod
     def forward(ctx, C):
@@ -198,10 +214,7 @@ class _KabschQCP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (C,) = ctx.saved_tensors
-        with torch.enable_grad():
-            Cd = C.detach().requires_grad_()
-            (gC,) = torch.autograd.grad(kabsch_rotations_svd(Cd), Cd, g)
-        return gC
+        return _plain_vjp(kabsch_rotations_svd, C, g)
 
 
 def kabsch_rotations_cuda(C: torch.Tensor) -> torch.Tensor:
@@ -215,7 +228,8 @@ def kabsch_rotations_cuda(C: torch.Tensor) -> torch.Tensor:
 class _FusedAlign(torch.autograd.Function):
     """K2 on x and the reference in float32, the result in x's dtype; the
     backward differentiates ``align_frames`` at x with the reference in x's
-    dtype (``kabsch_pallas.py:272-286``)."""
+    dtype (``kabsch_pallas.py:272-286``), twice where asked
+    (:func:`_plain_vjp`)."""
 
     @staticmethod
     def forward(ctx, x, ref, idx32, idx64):
@@ -231,10 +245,9 @@ class _FusedAlign(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, ref, idx64 = ctx.saved_tensors
-        with torch.enable_grad():
-            xd = x.detach().requires_grad_()
-            out = align_frames(xd, ref.to(x.dtype), idx64, method="quaternion")
-            (gx,) = torch.autograd.grad(out, xd, g)
+        ref = ref.to(x.dtype)
+        gx = _plain_vjp(
+            lambda xd: align_frames(xd, ref, idx64, method="quaternion"), x, g)
         return gx, None, None, None
 
 

@@ -1,6 +1,7 @@
 """PyTorch port on the card: CUDA kernels K1-K4 against their plain PyTorch
-versions, and training epochs captured as CUDA graphs against the same
-epochs run eagerly. Every test here needs an NVIDIA card and ``nvcc``: it
+versions, K1's and K2's backward differentiated twice, and training epochs
+(transfer operator, generator, committor) captured as CUDA graphs against
+the same epochs run eagerly. Every test here needs an NVIDIA card and ``nvcc``: it
 carries the ``cuda`` marker and skips where ``torch.cuda.is_available()`` is
 false. This file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch (``-s`` shows the graph-against-eager gaps):
@@ -13,13 +14,15 @@ import pytest
 import torch
 
 from colvarsfinder_tpu_torch import (
+    CommittorTask,
     EigenFunctionTask,
     Feature,
     FeatureLayer,
     PreprocessingANN,
     WeightedTrajectory,
 )
-from colvarsfinder_tpu_torch.models import EigenFunctions
+from colvarsfinder_tpu_torch.core.losses import _gram_quadratic_form
+from colvarsfinder_tpu_torch.models import EigenFunctions, create_sequential_nn
 from colvarsfinder_tpu_torch.ops import _cuda
 from colvarsfinder_tpu_torch.ops.alignment import (
     AlignmentLayer,
@@ -575,3 +578,174 @@ def test_a_host_sync_in_the_step_fails_the_capture(dev, tmp_path):
         _train(task)
     assert task._graph is None
     assert not hasattr(task, "train_loss")
+
+
+# ---------------------------------------------------------------------------
+# the Dirichlet form: the generator and the committor
+def _second_order(layer, x, theta):
+    """d(sum gx^2)/d theta with gx = d/dx sum theta * tanh(layer(x))."""
+    xt = x.clone().requires_grad_()
+    th = theta.clone().requires_grad_()
+    (gx,) = torch.autograd.grad((th * torch.tanh(layer(xt))).sum(), xt,
+                                create_graph=True)
+    (g,) = torch.autograd.grad((gx**2).sum(), th)
+    return g
+
+
+@pytest.mark.parametrize("layer", ["fused", "cuda"])
+def test_k1_k2_backward_is_twice_differentiable(dev, layer):
+    """The kernel's forward, its plain-formulation backward recorded and
+    differentiated again, against the plain layer throughout."""
+    x, ref, idx = _frames(4096, 10, 10, seed=5)
+    x = torch.from_numpy(x).to(dev)
+    theta = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (10, 3)).astype(np.float32)).to(dev)
+    plain = AlignmentLayer(ref, idx).to(dev)
+    if layer == "fused":
+        kern = FusedAlignmentLayer(ref, idx).to(dev)
+    else:
+        kern = AlignmentLayer(ref, idx, method="cuda").to(dev)
+    _cuda.reset_launch_counts()
+    got = _second_order(kern, x, theta)
+    torch.cuda.synchronize()
+    name = "fused_align" if layer == "fused" else "kabsch_qcp"
+    assert _cuda.LAUNCHES[name] == 1  # the forward: nothing falls back
+    want = _second_order(plain, x, theta)
+    assert float(want.abs().max()) > 0
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_bf16_gram_quadratic_form_on_the_card(dev):
+    """bf16 x bf16 -> f32 products against the upcast product the CPU
+    takes, and its gradient against autograd of the upcast product."""
+    rng = np.random.default_rng(7)
+    G = torch.from_numpy(rng.standard_normal((2, 512, 30)).astype(
+        np.float32)).to(dev).requires_grad_()
+    A = rng.standard_normal((512, 30, 30)).astype(np.float32)
+    M = torch.from_numpy(np.einsum("bid,bjd->bij", A, A) / 30).to(dev)
+    Mb = M.to(torch.bfloat16)
+    got = _gram_quadratic_form(G, Mb)
+    assert got.dtype == torch.float32 and got.shape == (512, 2)
+    G2 = G.detach().to(torch.bfloat16).float().requires_grad_()
+    want = torch.einsum("kbi,bij,kbj->bk", G2, Mb.float(), G2)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    (g,) = torch.autograd.grad(got.sum(), G)
+    (g2,) = torch.autograd.grad(want.sum(), G2)
+    torch.testing.assert_close(g, g2, rtol=1e-5, atol=1e-4)
+    # against float32 M: the bar of the bf16 Gram mode
+    torch.testing.assert_close(got, _gram_quadratic_form(G, M), rtol=2e-2,
+                               atol=0)
+
+
+# the Dirichlet runs: generator (Gram, vjp, bf16 Gram) and committor (Gram,
+# vjp), all through FusedAlignmentLayer (K2) at the main path's widths
+DIRICHLET = ["gen_gram", "gen_vjp", "gen_bf16", "com_gram", "com_vjp"]
+G_DIAG = np.random.default_rng(2).uniform(0.5, 2.0, 30)
+
+
+def _dirichlet_task(path, kind, epochs, **kw):
+    rng = np.random.default_rng(0)
+    ref = rng.standard_normal((10, 3)).astype(np.float32)
+    traj = (ref[None] + 0.3 * rng.standard_normal((G_FRAMES, 10, 3))
+            ).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, G_FRAMES).astype(np.float32)
+    atoms = list(range(10))
+    pp = PreprocessingANN(FusedAlignmentLayer(ref, atoms),
+                          FeatureLayer([Feature("p", "position", atoms)]))
+    traj_obj = WeightedTrajectory(trajectory=traj, weights=w, dt=G_DT,
+                                  verbose=False)
+    args = dict(learning_rate=0.002, save_model_every_step=0,
+                batch_size=G_BATCH, num_epochs=epochs, test_ratio=0.1,
+                verbose=False, tensorboard=False, seed=0, debug_mode=False,
+                progress_interval=1, diag_coeff=G_DIAG,
+                gram_pp=not kind.endswith("vjp"))
+    args.update(kw)
+    if kind.startswith("gen"):
+        return EigenFunctionTask(
+            traj_obj, pp, EigenFunctions(G_DIMS, G_K, seed=0), str(path),
+            alpha=20.0, eig_weights=[1.0, 0.2], lag_tau=0.0, k=G_K,
+            gram_dtype="bfloat16" if kind == "gen_bf16" else None, **args)
+    c = traj[:, 0, 0]
+    return CommittorTask(
+        traj_obj, pp, create_sequential_nn(G_DIMS, seed=0), str(path),
+        region_a=c < np.quantile(c, 0.05), region_b=c > np.quantile(c, 0.95),
+        alpha=20.0, **args)
+
+
+def _dirichlet_schedule(kind, epochs, first_call):
+    """K2 per batch on the vjp path; on the Gram path once per batch in the
+    precompute of a task's first train() call."""
+    want = dict.fromkeys(_cuda.LAUNCHES, 0)
+    if kind.endswith("vjp"):
+        want["fused_align"] = epochs * (G_TRAIN + G_TEST)
+    elif first_call:
+        want["fused_align"] = G_TRAIN + G_TEST
+    return want
+
+
+@pytest.mark.parametrize("kind", DIRICHLET)
+def test_dirichlet_captured_epochs_equal_eager_epochs(dev, tmp_path, kind):
+    graph = _dirichlet_task(tmp_path / "graph", kind, 5)
+    eager = _dirichlet_task(tmp_path / "eager", kind, 5)
+    eager._eager_on_card = True
+    rows = []
+    for epochs, first in ((5, True), (2, False)):
+        before = graph._graph
+        counts = _train(graph, epochs)
+        want = _dirichlet_schedule(kind, epochs, first)
+        assert counts == want == _train(eager, epochs)
+        assert eager._graph is None
+        if before is not None:
+            assert graph._graph is before
+        rows.append((_rows(graph), _rows(eager)))
+    assert graph._gram is (not kind.endswith("vjp"))
+    assert np.isfinite(rows[0][0]).all()
+    got, want = (np.concatenate(r) for r in zip(*rows))
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(graph.model.parameters(), eager.model.parameters()):
+        assert torch.equal(a, b)
+
+
+def test_generator_resume_equals_an_uninterrupted_run(dev, tmp_path):
+    whole = _dirichlet_task(tmp_path / "whole", "gen_gram", 4)
+    _train(whole)
+    first = _dirichlet_task(tmp_path / "first", "gen_gram", 2)
+    _train(first)
+    state = str(tmp_path / "state.pt")
+    first.save_training_state(1, state)
+    resumed = _dirichlet_task(tmp_path / "resumed", "gen_gram", 2)
+    assert resumed.load_training_state(state) == 1
+    _train(resumed)
+    assert resumed._graph is not None
+    np.testing.assert_array_equal(_rows(resumed), _rows(whole)[2:])
+    for a, b in zip(resumed.model.parameters(), whole.model.parameters()):
+        assert torch.equal(a, b)
+
+
+
+def test_input_gradients_are_recorded_on_the_calling_thread(dev):
+    """The Dirichlet losses' input-gradient passes run their backward on
+    the calling thread, so the nodes they record are numbered in one
+    sequence with the forward's, and a step's parameter gradient does not
+    depend on what the process ran before."""
+    import threading
+
+    from colvarsfinder_tpu_torch.core.losses import _input_jacobian
+
+    seen = []
+
+    class Probe(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            seen.append(threading.get_ident())
+            return g
+
+    model = create_sequential_nn([6, 8, 1], seed=0).to(dev)
+    X = torch.randn(32, 6, device=dev)
+    y, jac = _input_jacobian(lambda Xb: model(Probe.apply(Xb)), X, 1)
+    assert jac.shape == (1, 32, 6) and jac.requires_grad
+    assert seen == [threading.get_ident()]

@@ -202,8 +202,6 @@ def test_task_split_and_segments_equal_sklearn(jax_run, tmp_path):
 
 def test_task_guards(jax_run, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _port_task(jax_run, tmp_path, fused=False, lag_tau=0.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         _port_task(jax_run, tmp_path, fused=False, export_cv=True)
     with pytest.raises(ValueError, match="shared memory"):
         traj = WeightedTrajectory(trajectory=jax_run["x"], dt=DT,

@@ -13,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from colvarsfinder_tpu.core import CommittorTask as JaxCommittorTask
 from colvarsfinder_tpu.core import EigenFunctionTask as JaxTask
 from colvarsfinder_tpu.deploy import load_numpy_cv as jax_load_numpy_cv
 from colvarsfinder_tpu.models import EigenFunctions as JaxEigenFunctions
+from colvarsfinder_tpu.models import create_sequential_nn as jax_sequential
 from colvarsfinder_tpu.ops import Lambda as JaxLambda
 from colvarsfinder_tpu.ops.alignment import AlignmentLayer as JaxAlign
 from colvarsfinder_tpu.ops.features import Feature as JaxFeature
@@ -99,6 +101,33 @@ def _save_both(tmp_path, kind, activation="tanh"):
     return tmp_path / "jax" / "latest", tmp_path / "port" / "latest", ptask, x
 
 
+def _save_both_committor(tmp_path):
+    """Each package's CommittorTask.save_model on the same logit CV (a
+    ``Sequential`` head); returns both directories and the port's task."""
+    x, ref, masses = _data()
+    w = np.random.default_rng(1).uniform(0.5, 1.5, N_FRAMES)
+    jm = jax_sequential([D_R, 8, 8, 1], seed=5)
+    named = {n: np.asarray(v) for n, v in jm.named_parameters()}
+    c = x[:, 0, 0]
+    args = dict(region_a=c < np.quantile(c, 0.2),
+                region_b=c > np.quantile(c, 0.8), save_model_every_step=0,
+                batch_size=16, num_epochs=1, test_ratio=0.25, verbose=False,
+                tensorboard=False, seed=0, debug_mode=False)
+    jtask = JaxCommittorTask(
+        JaxTraj(trajectory=x, weights=w, dt=DT, verbose=False),
+        _pp("jax", "plain", ref, masses), jm, str(tmp_path / "jax"),
+        export_cv=False, **args)
+    ptask = port.CommittorTask(
+        port.WeightedTrajectory(trajectory=x, weights=w, dt=DT,
+                                verbose=False),
+        _pp("port", "plain", ref, masses),
+        port.models.params_from_numpy(named, [D_R, 8, 8, 1]),
+        str(tmp_path / "port"), device="cpu", **args)
+    jtask.save_model(0)
+    ptask.save_model(0)
+    return tmp_path / "jax" / "latest", tmp_path / "port" / "latest", ptask, x
+
+
 def _names(d):
     return {p.name for p in d.iterdir()} - OWN
 
@@ -109,9 +138,31 @@ def _npz(path):
 
 
 @pytest.mark.parametrize("kind,activation", [("plain", "tanh"),
-                                             ("weighted", "gelu")])
+                                             ("weighted", "gelu"),
+                                             ("committor", "tanh")])
 def test_save_model_writes_the_jax_artifacts(tmp_path, kind, activation):
-    jdir, pdir, ptask, x = _save_both(tmp_path, kind, activation)
+    if kind == "committor":
+        jdir, pdir, ptask, x = _save_both_committor(tmp_path)
+        k = 1
+        with open(pdir / "cv_numpy_spec.json") as f:
+            assert json.load(f)["graph"]["stages"][1]["kind"] == "mlp"
+        # the per-CV text dumps of the one CV, equal in both
+        for name in ("0_1_weight.txt", "0_3_bias.txt"):
+            np.testing.assert_array_equal(np.loadtxt(pdir / name),
+                                          np.loadtxt(jdir / name))
+        # cv_params.npz: the same arrays under each package's names
+        jp, pp = _npz(jdir / "cv_params.npz"), _npz(pdir / "cv_params.npz")
+        al = "pp_layer.alignment_layer."
+        mapping = {"0.0.0": al + "ref_centered", "0.0.1": al + "align_idx"}
+        for li in range(3):
+            for part in ("weight", "bias"):
+                mapping[f"1.0.{li}.{part}"] = f"head.{li + 1}.{part}"
+        assert set(jp) == set(mapping) and set(pp) == set(mapping.values())
+        for jkey, pkey in mapping.items():
+            np.testing.assert_array_equal(pp[pkey], jp[jkey])
+    else:
+        jdir, pdir, ptask, x = _save_both(tmp_path, kind, activation)
+        k = K
     assert _names(jdir) == _names(pdir)
     assert CV_FILES <= _names(pdir)
     assert {"model.pt", "train_state.pt"} <= {p.name for p in pdir.iterdir()}
@@ -146,7 +197,7 @@ def test_save_model_writes_the_jax_artifacts(tmp_path, kind, activation):
     xs = x[:7].astype(np.float64)
     pv, pj = port.load_numpy_cv(str(pdir), with_grad=True)(xs)
     jv, jj = jax_load_numpy_cv(str(jdir), with_grad=True)(xs)
-    assert pj.shape == (7, K, N_ATOMS, 3)
+    assert pj.shape == (7, k, N_ATOMS, 3)
     np.testing.assert_allclose(pv, jv, atol=1e-8, rtol=0)
     np.testing.assert_allclose(pj, jj, atol=1e-8, rtol=0)
 

@@ -98,10 +98,3 @@ def test_quirks_are_kept():
     sorted_np = (torch.tensor(EIG_W) * num[c] / (var[c] + varl[c])).sum() / (
         CONST["traj_dt"] * CONST["lag_idx"])
     assert not torch.isclose(aux.non_penalty_loss, sorted_np, rtol=1e-3)
-
-
-def test_generator_branch_is_not_ported():
-    _, tm, data = _case(2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eigen_loss(tm, Identity(), *[torch.from_numpy(a) for a in data],
-                   sort_eigvals=True, **{**CONST, "lag_idx": 0})
