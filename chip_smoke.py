@@ -53,6 +53,24 @@ Phases (each raises on failure; nothing is caught):
    through K2 at the main path's batch against the plain layer's within
    K4's bar; samples/s, the Gram precompute's time and bytes, K1 and K2
    launches per batch, and device time and activities per step under
+   torch.profiler;
+7. the autoencoders on phase 4's frames at BASELINE config 3's widths and
+   rate (encoder [30,30,30,2], decoder [2,30,30,30], lr 0.002), through
+   FusedAlignmentLayer: the AutoEncoderTask (its features once, one K2
+   launch, at construction), held against the same run through
+   AlignmentLayer(method='quaternion'), whose saved TorchScript CV must
+   load on the CPU and agree, and its features once more through K1
+   (weighted alignment) against method='quaternion'; the
+   RegAutoEncoderTask with all six terms (heads [2,20,20,1], K = 2, lag 5
+   for both the reconstruction and the transfer regularizer), the
+   generator regularizer on the Gram path and on the vjp path, and three
+   epochs with the encoder frozen, whose bits must not change. Every run
+   against its eager twin bit for bit. The transfer RegAE against the
+   plain layer within the training bar while their sorts of the heads
+   agree, and vjp against Gram, each over all 30 epochs within the drift
+   bar of two plain versions (scripts/regae_drift.py) and step by step
+   from the same parameters (vjp against Gram in float64). Samples/s, K2
+   launches per batch, and device time and activities per step under
    torch.profiler.
 
 The second-to-last line lists the kernels as JSON; the last line is
@@ -123,6 +141,30 @@ GEN_BETA = 1.0
 GEN_DIAG = np.random.default_rng(2).uniform(0.5, 2.0, 3 * N_ATOMS)
 COMMITTOR_Q = (0.05, 0.95)
 BF16_RTOL = 2e-2
+# phase 7: BASELINE config 3's widths and rate (benchmarks/run_baselines.py:
+# 55,304), heads at the main path's hidden width, the all-six-terms settings
+# of benchmarks/parity_step.py:295-297, lag 5 for both lagged terms
+AE_DIMS = ([3 * N_ATOMS, 30, 30, 2], [2, 30, 30, 3 * N_ATOMS])
+AE_REG_DIMS, AE_LR = [2, 20, 20, 1], 0.002
+REG_TERMS = dict(eig_weights=[1.0, 0.5], alpha=1.0, gamma=[0.7, 3.0],
+                 eta=[0.05, 0.1, 0.2], beta=1.0)
+FREEZE_EPOCHS = 3
+# phase 7's RegAE pairs over all 30 epochs. On these frames (i.i.d. noise,
+# no slow mode) the heads keep near-zero variance and their sort flips, so
+# two correct float32 versions of one RegAE run part further than the
+# training bar. scripts/regae_drift.py trains two plain versions of each
+# configuration (AlignmentLayer method='svd' against 'quaternion', model
+# seeds 0-2) on the card; the largest gaps it read (H100 80GB HBM3, 700 W):
+# transfer loss 2.108e-2, eig 2.710e-4; generator loss 9.125e-2, eig
+# 3.672e-2. The bar is twice that, rounded up to one digit, and never
+# below the training bar
+DRIFT_RTOL = {"transfer": {"loss": 5e-2, "eig": 5e-3},
+              "generator": {"loss": 2e-1, "eig": 8e-2}}
+# the vjp and Gram steps of the RegAE's generator regularizer against each
+# other in float64: on these frames the step amplifies rounding ~6e4-fold
+# (float32 gradients sit ~3.6e-3 of their scale from float64's), so
+# float64's 1.1e-16 becomes ~7e-12; 1e-9 leaves two orders of margin
+F64_STEP_RTOL = 1e-9
 
 KERNELS = {
     "kabsch_qcp": ("colvarsfinder_tpu_torch/csrc/kabsch.cu",
@@ -614,11 +656,11 @@ def phase_training(ref, traj_np, w_np, cvf):
     return runs
 
 
-def check_scripted_cv(task, latest, traj_np, frames=100):
+def check_scripted_cv(task, latest, traj_np, frames=100, label="plain"):
     """The saved TorchScript CV, loaded on the CPU, against the trained CV
     model on the card."""
     names = sorted(os.listdir(latest))
-    log(f"  plain: latest/ holds {names}")
+    log(f"  {label}: latest/ holds {names}")
     missing = {"cv_params.npz", "cv_spec.json", "cv_numpy_spec.json",
                "cv_numpy.npz", "cv_native.bin", "scripted_cv_cpu.pt"}
     missing -= set(names)
@@ -902,6 +944,344 @@ def phase_dirichlet(card, ref, traj_np, w_np, cvf):
     return out
 
 
+def make_ae(cvf, kind, traj_obj, ref, path, epochs, method="fused",
+            save_every=0, align_weights=None, seed=0):
+    """An AutoEncoderTask (``ae``) or a RegAutoEncoderTask with all six
+    terms: transfer regularizer (``reg``, ``freeze`` with the encoder
+    frozen) or generator regularizer on the Gram or vjp path (``gen_gram``,
+    ``gen_vjp``); the alignment is FusedAlignmentLayer, or
+    AlignmentLayer(method=method); the model's weights from ``seed``."""
+    atoms = list(range(N_ATOMS))
+    if method == "fused":
+        align = cvf.FusedAlignmentLayer(ref, atoms)
+    else:
+        align = cvf.AlignmentLayer(ref, atoms, method=method,
+                                   align_weights=align_weights)
+    pp = cvf.PreprocessingANN(
+        align, cvf.FeatureLayer([cvf.Feature("p", "position", atoms)]))
+    args = dict(learning_rate=AE_LR, save_model_every_step=save_every,
+                batch_size=BATCH, num_epochs=epochs, test_ratio=TEST_RATIO,
+                verbose=False, tensorboard=False, seed=0, debug_mode=False,
+                progress_interval=1)
+    if kind == "ae":
+        return cvf.AutoEncoderTask(traj_obj, pp,
+                                   cvf.AutoEncoder(*AE_DIMS, seed=seed), path,
+                                   **args)
+    gen = kind.startswith("gen")
+    return cvf.RegAutoEncoderTask(
+        traj_obj, pp, cvf.RegAutoEncoder(*AE_DIMS, AE_REG_DIMS, K, seed=seed),
+        path, lag_tau_ae=LAG * DT, lag_tau_reg=0.0 if gen else LAG * DT,
+        gram_pp=(kind == "gen_gram") if gen else None,
+        freeze_encoder=kind == "freeze", **REG_TERMS, **args)
+
+
+def check_launches(label, got, want):
+    want = {**dict.fromkeys(got, 0), **want}
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, the schedule implies "
+                             f"{want}")
+
+
+def run_ae(cvf, card, kind, traj_obj, ref, path, epochs, eager=False,
+           **kw):
+    """Build (the launches counted from the constructor on), prepare and
+    train one autoencoder task; checks the metrics and returns the task,
+    its numbers and the launches of the build and of the training."""
+    from colvarsfinder_tpu_torch.ops import _cuda
+
+    label = path.rsplit("/", 1)[-1]
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    task = make_ae(cvf, kind, traj_obj, ref, path, epochs, **kw)
+    task._eager_on_card = eager
+    if kind != "ae":
+        record_sort_decisions(task)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data = task._prepare_data()
+    torch.cuda.synchronize()
+    prep_s = time.perf_counter() - t0
+    prep_counts = _cuda.launch_counts()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    task.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    tl = task.train_loss
+    if not np.isfinite(tl).all():
+        raise AssertionError(f"{label}: non-finite training metrics")
+    if epochs > 2 and not tl[-1, 0] < tl[0, 0]:
+        raise AssertionError(f"{label}: loss did not fall: {tl[:, 0]}")
+    if (task._graph is None) != eager:
+        raise AssertionError(f"{label}: captured graph "
+                             f"{task._graph is not None}")
+    nb = len(data[0]) + len(data[1])
+    steady = statistics.median(task.epoch_times[2:] or task.epoch_times)
+    gram = getattr(task, "_gram", False)
+    m_bytes = sum(b[2].numel() * b[2].element_size()
+                  for b in data[0] + data[1]) if gram else 0
+    row = dict(samples_per_s=len(data[0]) * BATCH / steady, wall_s=wall,
+               build_s=build_s, prepare_s=prep_s, gram_bytes=m_bytes,
+               k1_in_build=prep_counts["kabsch_qcp"],
+               k2_in_build=prep_counts["fused_align"],
+               k2_per_batch=counts["fused_align"] / (epochs * nb))
+    log(f"  {label:12s}: {epochs} epochs in {wall:.2f} s, "
+        f"{row['samples_per_s']:,.0f} samples/s, loss {tl[0, 0]:.5f} -> "
+        f"{tl[-1, 0]:.5f}; built in {build_s:.3f} s ({row['k2_in_build']} "
+        f"K2, {row['k1_in_build']} K1 launches), batches prepared in "
+        f"{prep_s:.3f} s (Gram matrices {m_bytes / 1e6:.1f} MB); per batch "
+        f"{row['k2_per_batch']:g} K2 launches ({card})")
+    return task, row, counts, prep_counts
+
+
+def same_bits(a, b):
+    """Every batch's metric row of every epoch and every final parameter
+    bit for bit equal."""
+    return (all(np.array_equal(x, y) for ea, eb in zip(a.loss_list,
+                                                        b.loss_list)
+                for x, y in zip(ea, eb))
+            and all(torch.equal(x, y) for x, y in zip(a.model.parameters(),
+                                                      b.model.parameters())))
+
+
+def record_sort_decisions(task):
+    """Keep, per epoch, the cvec of every train batch (the eigenvalue sort's
+    decisions) as the task fetches its metric rows."""
+    task.sort_log = []
+    fetched = task._chunk_fetched
+
+    def keep(train_cm):
+        task.sort_log += [rows[:, len(task.loss_names):].astype(int)
+                          for rows in train_cm]
+        fetched(train_cm)
+
+    task._chunk_fetched = keep
+
+
+def check_curves(a_label, a, b_label, b, cols, hold="all", drift=None):
+    """Two runs' training curves: within the training bar over every epoch
+    (``hold="all"``), over the epochs before the first train batch whose
+    sort of the heads (cvec) differs between the runs (``"sorted"``: where
+    two eigenvalues cross, the sort changes the objective's gradient, and
+    the transfer objective's preserved quirk, numerator unsorted and
+    denominator sorted, its value, so from there on the runs minimise
+    different objectives) or over none (None); and over every epoch within
+    ``drift`` (``{"loss": rtol, "eig": rtol}``) where given. Returns the
+    epochs held to the training bar and the largest relative difference
+    over all epochs."""
+    n = len(a.train_loss)
+    held = n
+    if hold == "sorted":
+        same = [np.array_equal(x, y) for x, y in zip(a.sort_log, b.sort_log)]
+        held = same.index(False) if False in same else n
+        log(f"  {a_label} vs {b_label}: every train batch sorted the heads "
+            f"alike in the first {held} of {n} epochs")
+        if held == 0:
+            raise AssertionError(f"{a_label} vs {b_label}: the heads sorted "
+                                 "differently in the first epoch")
+    elif hold is None:
+        held = 0
+    worst = 0.0
+    for col in cols:
+        name = a.loss_names[col]
+        rtol = CURVE_RTOL["loss"] if col == 0 else CURVE_RTOL["eig_1"]
+        x, y = a.train_loss[:, col], b.train_loss[:, col]
+        rel = np.abs(x - y) / np.abs(y)
+        worst = max(worst, float(rel.max()))
+        over = np.flatnonzero(rel > rtol)
+        all_rtol = None if drift is None else drift[
+            "loss" if col == 0 else "eig"]
+        log(f"  {a_label} vs {b_label} {name}: max relative difference "
+            f"{float(rel.max()):.3e} over {n} epochs (training bar {rtol}, "
+            f"held over the first {held}, first epoch past it: "
+            f"{over[0] if over.size else None}; drift bar {all_rtol} over "
+            "every epoch)")
+        np.testing.assert_allclose(x[:held], y[:held], rtol=rtol)
+        if drift is not None:
+            np.testing.assert_allclose(x, y, rtol=all_rtol)
+    return held, worst
+
+
+def same_state_check(cvf, traj_obj, ref, tmp, a, b, float64=False):
+    """Two versions of a task's step from the same (initial) parameters,
+    on every train batch. In float32 (K2 against the plain layer): the loss
+    and the eigenvalues within the training bar, the parameter gradient
+    within K4's relative bar with entries near zero held against the
+    largest entry, as the CPU tests hold gradients (a head's output bias
+    has a gradient of rounding residue only, the loss being blind to a
+    shift of a head). In float64 (two formulations of one step, both
+    through K2, whose float32 features they share): every metric and the
+    gradient within F64_STEP_RTOL. ``a`` and ``b`` are ``(label, kind,
+    make_ae keywords)``."""
+    from colvarsfinder_tpu_torch.config import set_default_dtype
+
+    rows, grads = [], []
+    set_default_dtype("float64" if float64 else "float32")
+    try:
+        for label, kind, kw in (a, b):
+            task = make_ae(cvf, kind, traj_obj, ref, f"{tmp}/same {label}", 1,
+                           **kw)
+            params = list(task.model.parameters())
+            for batch in task._prepare_data()[0]:
+                loss, row = task._batch_metrics(*batch)
+                grads.append(torch.autograd.grad(loss, params))
+                rows.append(row[:len(task.loss_names)].detach().cpu().numpy())
+    finally:
+        set_default_dtype("float32")
+    names = task.loss_names
+    cols = ([0] + [i for i, nm in enumerate(names) if nm.startswith("eig_")]
+            if not float64 else list(range(len(names))))
+    half = len(rows) // 2
+    rows = (np.stack(rows[:half]), np.stack(rows[half:]))
+    grads = ([g for gs in grads[:half] for g in gs],
+             [g for gs in grads[half:] for g in gs])
+    rel = np.abs(rows[0] - rows[1]) / np.abs(rows[1])
+    rtol = F64_STEP_RTOL if float64 else TOL["stats_bwd"]["rtol"]
+    scale = max(float(g.abs().max()) for g in grads[1])
+    err = max_err(grads[0], grads[1]) / scale
+    bar = {"all": rtol} if float64 else CURVE_RTOL
+    log(f"  {a[0]} vs {b[0]}, {'float64, ' if float64 else ''}each of "
+        f"{half} steps from the same parameters: max relative difference "
+        f"of the {'metrics' if float64 else 'loss and eigenvalues'} "
+        f"{float(rel[:, cols].max()):.3e} (tolerance {bar}); parameter "
+        f"gradient max |diff| {err:.3e} of its largest entry {scale:.4g} "
+        f"(tolerance rtol {rtol}, atol {rtol} of the largest entry)")
+    for col in cols:
+        tol = (rtol if float64 else
+               CURVE_RTOL["loss"] if col == 0 else CURVE_RTOL["eig_1"])
+        np.testing.assert_allclose(rows[0][:, col], rows[1][:, col],
+                                   rtol=tol, err_msg=names[col])
+    for ga, gb in zip(*grads):
+        torch.testing.assert_close(ga, gb, rtol=rtol, atol=rtol * scale)
+    return float(rel[:, cols].max()), err
+
+
+def phase_autoencoders(card, ref, traj_np, w_np, cvf):
+    """Phase 7: the AutoEncoderTask and the RegAutoEncoderTask on phase 4's
+    frames."""
+    traj_obj = cvf.WeightedTrajectory(trajectory=traj_np, weights=w_np,
+                                      dt=DT, verbose=False)
+    eig_cols = [4 + i for i in range(K)]
+    out, tasks = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, kind, epochs, eager, kw in (
+            ("ae", "ae", EPOCHS, False, {}),
+            ("ae eager", "ae", EPOCHS, True, {}),
+            ("ae plain", "ae", EPOCHS, False,
+             dict(method="quaternion", save_every=EPOCHS)),
+            ("reg", "reg", EPOCHS, False, {}),
+            ("reg eager", "reg", EPOCHS, True, {}),
+            ("reg plain", "reg", EPOCHS, False, dict(method="quaternion")),
+            ("gen_gram", "gen_gram", EPOCHS, False, {}),
+            ("gen_gram eager", "gen_gram", EPOCHS, True, {}),
+            ("gen_vjp", "gen_vjp", EPOCHS, False, {}),
+            ("gen_vjp eager", "gen_vjp", EPOCHS, True, {}),
+            ("freeze", "freeze", FREEZE_EPOCHS, False, {}),
+            ("freeze eager", "freeze", FREEZE_EPOCHS, True, {}),
+        ):
+            if kind == "freeze" and not eager:
+                # the initial encoder: the same seed's
+                enc0 = list(cvf.RegAutoEncoder(*AE_DIMS, AE_REG_DIMS, K,
+                                               seed=0).encoder.parameters())
+            task, row, counts, build = run_ae(
+                cvf, card, kind, traj_obj, ref, f"{tmp}/{label}", epochs,
+                eager, **kw)
+            nb = len(task._prepared[0]) + len(task._prepared[1])
+            fused = kw.get("method", "fused") == "fused"
+            if kind == "ae":
+                check_launches(f"{label} build", build,
+                               {"fused_align": 1 if fused else 0})
+                check_launches(label, counts, {})
+            elif kind == "gen_gram":
+                # one frame at construction for the feature width d_r, then
+                # per batch the Gram pass and the lagged features
+                check_launches(f"{label} build", build,
+                               {"fused_align": 1 + 2 * nb})
+                check_launches(label, counts, {})
+            else:
+                # per batch the features of X and of X lagged (one pass for
+                # both lagged terms, whose lags are equal), and on the vjp
+                # path the input-gradient pass
+                per_batch = 3 if kind == "gen_vjp" else 2
+                check_launches(f"{label} build", build, {})
+                check_launches(label, counts, {
+                    "fused_align": per_batch * epochs * nb if fused else 0})
+            if label == "ae plain":
+                check_scripted_cv(task, f"{tmp}/{label}/latest", traj_np,
+                                  label=label)
+            if kind != "ae":
+                log(f"  {label}: final cvec {task._cvec.tolist()}")
+            if kind == "freeze" and not eager:
+                same = all(torch.equal(a, b.cuda()) for a, b in zip(
+                    task.model.encoder.parameters(), enc0))
+                log(f"  freeze, {epochs} epochs: encoder parameters bit for "
+                    f"bit equal to their initial values: {same}")
+                if not same:
+                    raise AssertionError("freeze_encoder moved the encoder")
+            tasks[label] = task
+            if not eager:
+                out[label] = row
+
+        for kind in ("ae", "reg", "gen_gram", "gen_vjp", "freeze"):
+            same = same_bits(tasks[kind], tasks[f"{kind} eager"])
+            log(f"  {kind} (graph) vs eager: every metric row and final "
+                f"parameter bit for bit equal: {same}")
+            if not same:
+                raise AssertionError(f"{kind}: the captured epochs differ "
+                                     "from the eager ones")
+        check_curves("ae", tasks["ae"], "ae plain", tasks["ae plain"], [0])
+        # the RegAE pairs: the training bar over the epochs before the
+        # transfer pair's sorts of the heads part, the drift bar of two
+        # plain versions over every epoch, and step by step from the same
+        # parameters
+        for a, b, config, hold in (
+                ("reg", "reg plain", "transfer", "sorted"),
+                ("gen_vjp", "gen_gram", "generator", None)):
+            out[f"{a} vs {b}"] = dict(zip(
+                ("epochs_held", "max_rel_all_epochs"),
+                check_curves(a, tasks[a], b, tasks[b], [0] + eig_cols,
+                             hold, DRIFT_RTOL[config])))
+        for a, b, f64 in ((("reg", "reg", {}),
+                           ("reg plain", "reg", dict(method="quaternion")),
+                           False),
+                          (("gen_vjp", "gen_vjp", {}),
+                           ("gen_gram", "gen_gram", {}), True)):
+            out[f"{a[0]} vs {b[0]} same state"] = dict(zip(
+                ("max_rel_metrics", "grad_max_abs_err_of_scale"),
+                same_state_check(cvf, traj_obj, ref, tmp, a, b, f64)))
+
+        # the AE's features through K1 (weighted alignment) against the same
+        # alignment in plain PyTorch
+        feats = {}
+        for method in ("cuda", "quaternion"):
+            task, _, _, build = run_ae(
+                cvf, card, "ae", traj_obj, ref, f"{tmp}/ae k1 {method}", 1,
+                method=method, align_weights=ALIGN_WEIGHTS)
+            check_launches(f"ae k1 {method} build", build,
+                           {"kabsch_qcp": 1 if method == "cuda" else 0})
+            feats[method] = task._feature_traj
+        err = max_err(feats["cuda"], feats["quaternion"])
+        log(f"  AE features through K1 (weighted), {N_FRAMES} frames: max "
+            f"|K1 route - plain| = {err:.3e} (tolerance {TOL['fused_align']})")
+        torch.testing.assert_close(feats["cuda"], feats["quaternion"],
+                                   **TOL["fused_align"])
+        out["ae_k1_features_max_abs_err"] = err
+
+        for label in ("ae", "reg", "gen_gram", "gen_vjp", "freeze"):
+            ms, acts, top = dirichlet_profile(tasks[label])
+            out[label].update(device_ms_per_step=ms,
+                              device_activities_per_step=acts)
+            log(f"  {label}: {out[label]['samples_per_s']:,.0f} samples/s; "
+                f"profiled, device {ms:.4f} ms/step, {acts:.1f} device "
+                f"activities/step ({card})")
+            for us, count, key in top:
+                log(f"    {us:9.1f} us/step {count:7.1f}x/step  {key[:70]}")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -938,6 +1318,8 @@ def main():
     prof = phase_profile(runs)
     log("phase 6: the generator and the committor (Dirichlet form)")
     dirichlet = phase_dirichlet(card, ref, traj_np, w_np, cvf)
+    log("phase 7: the autoencoder and the regularized autoencoder")
+    autoencoders = phase_autoencoders(card, ref, traj_np, w_np, cvf)
     launches = {"kabsch_qcp": runs["k1"]["counts"]["kabsch_qcp"]}
     for name in ("fused_align", "stats_fwd", "stats_bwd"):
         launches[name] = runs["fused"]["counts"][name]
@@ -958,6 +1340,7 @@ def main():
                                      "plain": runs["plain"]["sps"]},
         "profile": prof,
         "dirichlet": dirichlet,
+        "autoencoders": autoencoders,
     }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

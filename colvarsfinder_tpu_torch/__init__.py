@@ -1,19 +1,34 @@
 r"""colvarsfinder-tpu, PyTorch/CUDA port.
 
 A second package beside the JAX reference ``colvarsfinder_tpu``: the same
-API for eigenfunction training (generator and transfer operator) and
-committor training, written in PyTorch, with the JAX package's four Pallas
-TPU kernels rewritten as CUDA kernels for Hopper (``csrc/``). It imports neither JAX nor the JAX package. Entry
-points run on ``cuda`` unless the caller passes ``device='cpu'``; on CPU
-tensors every kernel wrapper runs its plain PyTorch version.
+API for eigenfunction training (generator and transfer operator),
+committor training and (regularized) autoencoder training, written in
+PyTorch, with the JAX package's four Pallas TPU kernels rewritten as CUDA
+kernels for Hopper (``csrc/``). It imports neither JAX nor the JAX
+package. Entry points run on ``cuda`` unless the caller passes
+``device='cpu'``; on CPU tensors every kernel wrapper runs its plain
+PyTorch version.
 """
 
 from . import config, core, models, ops, utils
-from .core import CommittorTask, EigenFunctionTask, TrainingTask
+from .core import (
+    AutoEncoderTask,
+    CommittorTask,
+    EigenFunctionTask,
+    RegAutoEncoderTask,
+    TrainingTask,
+)
 from .deploy import load_numpy_cv, save_numpy_cv
 from .deploy_torch import export_torchscript_cv, torchscript_from_numpy_cv
 from .export import ColvarModel, export_colvar
-from .models import EigenFunctions, Sequential, create_sequential_nn
+from .models import (
+    AutoEncoder,
+    EigenFunctions,
+    RegAutoEncoder,
+    RegModel,
+    Sequential,
+    create_sequential_nn,
+)
 from .ops import (
     AlignmentLayer,
     Feature,
@@ -25,6 +40,8 @@ from .utils import WeightedTrajectory, calc_weights
 
 __all__ = [
     "AlignmentLayer",
+    "AutoEncoder",
+    "AutoEncoderTask",
     "ColvarModel",
     "CommittorTask",
     "EigenFunctionTask",
@@ -33,6 +50,9 @@ __all__ = [
     "FeatureLayer",
     "FusedAlignmentLayer",
     "PreprocessingANN",
+    "RegAutoEncoder",
+    "RegAutoEncoderTask",
+    "RegModel",
     "Sequential",
     "TrainingTask",
     "WeightedTrajectory",

@@ -148,6 +148,10 @@ class CommittorTask(TrainingTask):
         r"""The logit-committor CV ``g(r(x))``."""
         return ColvarModel(self.preprocessing_layer, self.model)
 
+    def reg_model(self):
+        """None: the task has no regularizer model."""
+        return None
+
     def committor_fn(self):
         """Callable ``q(X) = sigmoid(g(r(X)))`` on raw state batches [n]."""
         cv = self.colvar_model()

@@ -262,6 +262,10 @@ class EigenFunctionTask(TrainingTask):
         return ColvarModel(self.preprocessing_layer,
                            self.model.reordered(self._cvec))
 
+    def reg_model(self):
+        """None: the task has no regularizer model."""
+        return None
+
     # ------------------------------------------------------------------
     def _prepare_data(self):
         """``(train, test, train_b, test_b, rows)``: per batch

@@ -1,6 +1,8 @@
 r"""Loss functions (port of ``colvarsfinder_tpu/core/losses.py``): the
-eigenfunction loss of the generator (``lag_idx == 0``) and of the transfer
-operator (``lag_idx > 0``), and the committor loss.
+autoencoders' reconstruction losses, the eigenfunction loss of the
+generator (``lag_idx == 0``) and of the transfer operator
+(``lag_idx > 0``), the committor loss, and the regularized autoencoder's
+encoder constraints and eigenfunction regularizer.
 
 The generator and the committor need per-sample input gradients. Samples
 are independent, so the gradient of the batch's sum of head ``i`` by the
@@ -29,7 +31,36 @@ from typing import Callable, NamedTuple
 
 import torch
 
-__all__ = ["EigenAux", "committor_loss", "eigen_loss"]
+__all__ = [
+    "EigenAux",
+    "committor_loss",
+    "eigen_loss",
+    "enc_grad_loss",
+    "enc_norm_loss",
+    "enc_orthogonality_loss",
+    "reg_eigen_loss",
+    "weighted_mse_lagged_loss",
+    "weighted_mse_loss",
+]
+
+
+def weighted_mse_loss(model, X: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    r"""Weighted reconstruction loss of an autoencoder on a feature batch
+    ``X`` [B, d] (``colvarsfinder_tpu/core/losses.py:62-70``):
+    :math:`\sum_l w_l \|f(x_l) - x_l\|^2 / \sum_l w_l`."""
+    out = model(X)
+    return (weight * ((out - X) ** 2).sum(dim=1)).sum() / weight.sum()
+
+
+def weighted_mse_lagged_loss(forward_ae: Callable, pp_layer: Callable,
+                             X: torch.Tensor, X_lagged: torch.Tensor,
+                             weight: torch.Tensor) -> torch.Tensor:
+    r"""Time-lagged reconstruction loss (``losses.py:73-86``):
+    :math:`\sum_l w_l \|f(r(x_l)) - r(x_{l+j})\|^2 / \sum_l w_l`."""
+    out = forward_ae(pp_layer(X))
+    target = pp_layer(X_lagged)
+    return (weight * ((out - target) ** 2).sum(dim=1)).sum() / weight.sum()
 
 
 class EigenAux(NamedTuple):
@@ -271,3 +302,49 @@ def committor_loss(model, pp_layer, X, weight, mask_a, mask_b, hyper,
     pen_b = (weight * mask_b * (1.0 - q) ** 2).sum() / tot_weight
     loss = dirichlet + alpha * (pen_a + pen_b)
     return loss, (dirichlet, pen_a, pen_b)
+
+
+# ---------------------------------------------------------------------------
+# the regularized autoencoder's encoder constraints and regularizer
+def enc_grad_loss(encoder, pp_layer, X, weight, k: int) -> torch.Tensor:
+    r"""Weighted mean squared norm of the encoder's gradients by the
+    features ``Y = r(X)``, not by the raw coordinates, summed over its k
+    outputs (``losses.py:293-303``)."""
+    _, jac = _input_jacobian(encoder, pp_layer(X), k)
+    grad_sq = _grad_sq(jac, None)  # [B, k]
+    return ((grad_sq * weight[:, None]).sum(dim=0) / weight.sum()).sum()
+
+
+def enc_norm_loss(encoder, pp_layer, X, weight, k: int) -> torch.Tensor:
+    r"""Penalty on the weighted variances of the encoder's outputs,
+    :math:`\sum_i (\mathrm{var}_w\,e_i - 1)^2` (``losses.py:306-312``)."""
+    enc = encoder(pp_layer(X))
+    _, variances = _weighted_moments(enc, weight, weight.sum())
+    return ((variances - 1.0) ** 2).sum()
+
+
+def enc_orthogonality_loss(encoder, pp_layer, X, weight,
+                           k: int) -> torch.Tensor:
+    """Penalty on the pairwise weighted covariances of the encoder's
+    outputs (``losses.py:315-321``)."""
+    tot_weight = weight.sum()
+    enc = encoder(pp_layer(X))
+    means, _ = _weighted_moments(enc, weight, tot_weight)
+    return _pairwise_cov_penalty(enc, weight, tot_weight, means, k)
+
+
+def reg_eigen_loss(model, pp_layer, X, weight, X_lagged, weight_lagged, *,
+                   num_reg: int, eig_w, beta: float, diag_coeff, lag_idx: int,
+                   traj_dt: float, pp_gram: torch.Tensor | None = None):
+    r"""The eigenfunction regularizer of a regularized autoencoder: the
+    eigenfunction objective of :func:`eigen_loss` on its regularizer heads
+    ``model.forward_reg`` (``losses.py:324-407``), always sorted by
+    eigenvalue, with both preserved quirks. Returns ``(eig_vals,
+    non_penalty, penalty, cvec)``; the weight of the penalty is the
+    caller's."""
+    _, aux = eigen_loss(
+        model.forward_reg, pp_layer, X, weight, X_lagged, weight_lagged,
+        k=num_reg, alpha=0.0, eig_w=eig_w, beta=beta, diag_coeff=diag_coeff,
+        lag_idx=lag_idx, traj_dt=traj_dt, sort_eigvals=True, pp_gram=pp_gram,
+    )
+    return aux.eig_vals, aux.non_penalty_loss, aux.penalty, aux.cvec

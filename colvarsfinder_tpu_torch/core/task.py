@@ -513,6 +513,10 @@ class TrainingTask(ABC):
         """Called with a chunk's train rows [chunk, nb_train, width] once
         they reach the host."""
 
+    def _before_step(self) -> None:
+        """Called in each train step between the backward and the optimizer
+        step, where a task may change the gradients in place."""
+
     def _epoch_body(self, train_data, test_data, rows):
         """One epoch: a step per train batch (forward, ``zero_grad``,
         backward, optimizer step), then the test batches under ``no_grad``
@@ -528,6 +532,7 @@ class TrainingTask(ABC):
             loss, metrics = self._batch_metrics(*batch)
             self.optimizer.zero_grad(set_to_none=True)
             loss.backward()
+            self._before_step()
             self.optimizer.step()
             ms.append(metrics)
         with torch.no_grad():
@@ -597,7 +602,7 @@ class TrainingTask(ABC):
             if (self.plot_frequency > 0
                     and e % self.plot_frequency == self.plot_frequency - 1
                     and self.plot_class is not None):
-                self.plot_class.plot(self.colvar_model(), epoch=e)
+                self._plot(e)
 
         shape = (0, n_metrics)
         self.train_loss = np.stack(train_means) if train_means else np.zeros(shape)
@@ -615,6 +620,15 @@ class TrainingTask(ABC):
 
         return losses_to_dataframe(list(self.test_loss), self.loss_names)
 
+    def _plot(self, epoch: int) -> None:
+        """The plot callback of epoch ``epoch``."""
+        self.plot_class.plot(self.colvar_model(), epoch=epoch)
+
     @abstractmethod
     def colvar_model(self):
         """The CV model built from the preprocessing layer and the model."""
+
+    @abstractmethod
+    def reg_model(self):
+        """The regularizer model built from the preprocessing layer and the
+        model, or None (``colvarsfinder_tpu/core/task.py:966-968``)."""

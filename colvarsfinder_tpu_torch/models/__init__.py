@@ -1,5 +1,6 @@
 """Models of the PyTorch port."""
 
+from .ae import AutoEncoder, RegAutoEncoder, RegModel
 from .eigen import EigenFunctions
 from .module import (
     ACTIVATIONS,
@@ -16,6 +17,7 @@ from .module import (
 
 __all__ = [
     "ACTIVATIONS",
+    "AutoEncoder",
     "EigenFunctions",
     "Sequential",
     "create_sequential_nn",
@@ -23,6 +25,8 @@ __all__ = [
     "mlp_apply",
     "mlp_init",
     "params_from_numpy",
+    "RegAutoEncoder",
+    "RegModel",
     "resolve_activation",
     "stacked_mlp_apply",
     "stacked_mlp_init",

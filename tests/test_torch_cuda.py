@@ -1,7 +1,7 @@
 """PyTorch port on the card: CUDA kernels K1-K4 against their plain PyTorch
 versions, K1's and K2's backward differentiated twice, and training epochs
-(transfer operator, generator, committor) captured as CUDA graphs against
-the same epochs run eagerly. Every test here needs an NVIDIA card and ``nvcc``: it
+(transfer operator, generator, committor, the autoencoders) captured as CUDA
+graphs against the same epochs run eagerly. Every test here needs an NVIDIA card and ``nvcc``: it
 carries the ``cuda`` marker and skips where ``torch.cuda.is_available()`` is
 false. This file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch (``-s`` shows the graph-against-eager gaps):
@@ -14,11 +14,15 @@ import pytest
 import torch
 
 from colvarsfinder_tpu_torch import (
+    AutoEncoder,
+    AutoEncoderTask,
     CommittorTask,
     EigenFunctionTask,
     Feature,
     FeatureLayer,
     PreprocessingANN,
+    RegAutoEncoder,
+    RegAutoEncoderTask,
     WeightedTrajectory,
 )
 from colvarsfinder_tpu_torch.core.losses import _gram_quadratic_form
@@ -749,3 +753,112 @@ def test_input_gradients_are_recorded_on_the_calling_thread(dev):
     y, jac = _input_jacobian(lambda Xb: model(Probe.apply(Xb)), X, 1)
     assert jac.shape == (1, 32, 6) and jac.requires_grad
     assert seen == [threading.get_ident()]
+
+
+# ---------------------------------------------------------------------------
+# the autoencoders, through FusedAlignmentLayer (K2) at the main path's
+# widths: the AE, and the regularized AE with all six terms (transfer
+# regularizer, generator regularizer on its Gram and vjp paths, and the
+# transfer configuration with the encoder frozen)
+AE_KINDS = ["reg_transfer", "reg_gram", "reg_vjp", "reg_freeze"]
+AE_DIMS = ([30, 30, 30, 2], [2, 30, 30, 30])
+
+
+def _ae_task(path, kind, epochs, **kw):
+    rng = np.random.default_rng(0)
+    ref = rng.standard_normal((10, 3)).astype(np.float32)
+    traj = (ref[None] + 0.3 * rng.standard_normal((G_FRAMES, 10, 3))
+            ).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, G_FRAMES).astype(np.float32)
+    atoms = list(range(10))
+    pp = PreprocessingANN(FusedAlignmentLayer(ref, atoms),
+                          FeatureLayer([Feature("p", "position", atoms)]))
+    traj_obj = WeightedTrajectory(trajectory=traj, weights=w, dt=G_DT,
+                                  verbose=False)
+    args = dict(learning_rate=0.002, save_model_every_step=0,
+                batch_size=G_BATCH, num_epochs=epochs, test_ratio=0.1,
+                verbose=False, tensorboard=False, seed=0, debug_mode=False,
+                progress_interval=1)
+    args.update(kw)
+    if kind == "ae":
+        return AutoEncoderTask(traj_obj, pp, AutoEncoder(*AE_DIMS, seed=0),
+                               str(path), **args)
+    gen = kind in ("reg_gram", "reg_vjp")
+    return RegAutoEncoderTask(
+        traj_obj, pp, RegAutoEncoder(*AE_DIMS, [2, 20, 20, 1], G_K, seed=0),
+        str(path), eig_weights=[1.0, 0.5], alpha=1.0, gamma=[0.7, 3.0],
+        eta=[0.05, 0.1, 0.2], lag_tau_ae=G_LAG * G_DT,
+        lag_tau_reg=0.0 if gen else G_LAG * G_DT,
+        gram_pp=(kind == "reg_gram") if gen else None,
+        freeze_encoder=kind == "reg_freeze", **args)
+
+
+def test_ae_features_take_one_k2_launch(dev, tmp_path):
+    """The whole trajectory's features at construction: one K2 launch, the
+    plain layer's values within K2's bar; each step then runs on features."""
+    _cuda.reset_launch_counts()
+    task = _ae_task(tmp_path, "ae", 3)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts() == {**dict.fromkeys(_cuda.LAUNCHES, 0),
+                                     "fused_align": 1}
+    plain = PreprocessingANN(
+        AlignmentLayer(task.preprocessing_layer.alignment_layer.ref_centered
+                       .cpu().numpy(), list(range(10))),
+        task.preprocessing_layer.feature_layer).to(dev)
+    with torch.no_grad():
+        want = plain(torch.from_numpy(np.asarray(
+            task.traj_obj.trajectory)).to(dev))
+    torch.testing.assert_close(task._feature_traj, want, atol=2e-4, rtol=0)
+    assert _train(task) == dict.fromkeys(_cuda.LAUNCHES, 0)
+    assert task._graph is not None and np.isfinite(task.train_loss).all()
+    assert task.train_loss[-1, 0] < task.train_loss[0, 0]
+
+
+def _ae_schedule(kind, epochs, first_call):
+    """K2 per batch: the features of X and of X lagged, one pass for the
+    reconstruction and the transfer regularizer, whose lags are equal; on
+    the vjp path also the input-gradient pass. On the Gram path the step
+    reads features: K2 twice per batch in the first call's precompute (the
+    Gram pass and the lagged features)."""
+    want = dict.fromkeys(_cuda.LAUNCHES, 0)
+    batches = G_TRAIN + G_TEST
+    if kind == "reg_gram":
+        want["fused_align"] = 2 * batches if first_call else 0
+    else:
+        per_batch = 3 if kind == "reg_vjp" else 2
+        want["fused_align"] = per_batch * epochs * batches
+    return want
+
+
+@pytest.mark.parametrize("kind", AE_KINDS)
+def test_regae_captured_epochs_equal_eager_epochs(dev, tmp_path, kind):
+    graph = _ae_task(tmp_path / "graph", kind, 4)
+    eager = _ae_task(tmp_path / "eager", kind, 4)
+    eager._eager_on_card = True
+    enc0 = [p.detach().clone() for p in graph.model.encoder.parameters()]
+    rows = []
+    for epochs, first in ((4, True), (2, False)):
+        before = graph._graph
+        counts = _train(graph, epochs)
+        assert counts == _ae_schedule(kind, epochs, first) == _train(eager,
+                                                                     epochs)
+        assert eager._graph is None
+        if before is not None:
+            assert graph._graph is before
+        rows.append((_rows(graph), _rows(eager)))
+    assert graph._gram is (kind == "reg_gram")
+    assert np.isfinite(rows[0][0]).all()
+    got, want = (np.concatenate(r) for r in zip(*rows))
+    np.testing.assert_array_equal(got, want)
+    for a, b in zip(graph.model.parameters(), eager.model.parameters()):
+        assert torch.equal(a, b)
+    np.testing.assert_array_equal(graph._cvec, eager._cvec)
+    enc = list(graph.model.encoder.parameters())
+    if kind == "reg_freeze":
+        # the encoder's bits, through six captured epochs
+        assert all(torch.equal(a, b) for a, b in zip(enc, enc0))
+        assert not torch.equal(graph.model.reg.weights[0],
+                               _ae_task(tmp_path / "x", kind, 1)
+                               .model.reg.weights[0].to(dev))
+    else:
+        assert not torch.equal(enc[0], enc0[0])

@@ -13,9 +13,11 @@ import numpy as np
 import pytest
 import torch
 
+from colvarsfinder_tpu.core import AutoEncoderTask as JaxAETask
 from colvarsfinder_tpu.core import CommittorTask as JaxCommittorTask
 from colvarsfinder_tpu.core import EigenFunctionTask as JaxTask
 from colvarsfinder_tpu.deploy import load_numpy_cv as jax_load_numpy_cv
+from colvarsfinder_tpu.models import AutoEncoder as JaxAutoEncoder
 from colvarsfinder_tpu.models import EigenFunctions as JaxEigenFunctions
 from colvarsfinder_tpu.models import create_sequential_nn as jax_sequential
 from colvarsfinder_tpu.ops import Lambda as JaxLambda
@@ -128,6 +130,30 @@ def _save_both_committor(tmp_path):
     return tmp_path / "jax" / "latest", tmp_path / "port" / "latest", ptask, x
 
 
+def _save_both_ae(tmp_path):
+    """Each package's AutoEncoderTask.save_model on the same CV: the
+    preprocessing layer and the encoder (a ``Sequential``, two CVs)."""
+    x, ref, masses = _data()
+    w = np.random.default_rng(1).uniform(0.5, 1.5, N_FRAMES)
+    jm = JaxAutoEncoder([D_R, 8, 8, 2], [2, 8, D_R], seed=6)
+    params = [[{n: np.asarray(v) for n, v in p.items()} for p in seq.params]
+              for seq in (jm.encoder, jm.decoder)]
+    args = dict(save_model_every_step=0, batch_size=16, num_epochs=1,
+                test_ratio=0.25, verbose=False, tensorboard=False, seed=0,
+                debug_mode=False)
+    jtask = JaxAETask(JaxTraj(trajectory=x, weights=w, dt=DT, verbose=False),
+                      _pp("jax", "plain", ref, masses), jm,
+                      str(tmp_path / "jax"), export_cv=False, **args)
+    ptask = port.AutoEncoderTask(
+        port.WeightedTrajectory(trajectory=x, weights=w, dt=DT,
+                                verbose=False),
+        _pp("port", "plain", ref, masses), port.AutoEncoder.from_numpy(
+            *params), str(tmp_path / "port"), device="cpu", **args)
+    jtask.save_model(0)
+    ptask.save_model(0)
+    return tmp_path / "jax" / "latest", tmp_path / "port" / "latest", ptask, x
+
+
 def _names(d):
     return {p.name for p in d.iterdir()} - OWN
 
@@ -139,15 +165,21 @@ def _npz(path):
 
 @pytest.mark.parametrize("kind,activation", [("plain", "tanh"),
                                              ("weighted", "gelu"),
-                                             ("committor", "tanh")])
+                                             ("committor", "tanh"),
+                                             ("autoencoder", "tanh")])
 def test_save_model_writes_the_jax_artifacts(tmp_path, kind, activation):
-    if kind == "committor":
-        jdir, pdir, ptask, x = _save_both_committor(tmp_path)
-        k = 1
+    if kind in ("committor", "autoencoder"):
+        if kind == "committor":
+            jdir, pdir, ptask, x = _save_both_committor(tmp_path)
+            k, dumps = 1, ("0_1_weight.txt", "0_3_bias.txt")
+        else:
+            jdir, pdir, ptask, x = _save_both_ae(tmp_path)
+            k, dumps = 2, ("0_1_weight.txt", "1_3_weight.txt", "1_3_bias.txt")
         with open(pdir / "cv_numpy_spec.json") as f:
             assert json.load(f)["graph"]["stages"][1]["kind"] == "mlp"
-        # the per-CV text dumps of the one CV, equal in both
-        for name in ("0_1_weight.txt", "0_3_bias.txt"):
+        # the per-CV text dumps (the last layer sliced to the CV's row),
+        # equal in both
+        for name in dumps:
             np.testing.assert_array_equal(np.loadtxt(pdir / name),
                                           np.loadtxt(jdir / name))
         # cv_params.npz: the same arrays under each package's names
