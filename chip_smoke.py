@@ -82,7 +82,23 @@ Phases (each raises on failure; nothing is caught):
    through the native C++ evaluator (built by g++ here) against the numpy
    evaluator, and through write_plumed_cv / write_plumed_metad, whose
    TorchScript model must agree with the CV; frames/s and device time per
-   call of the programs, the live CV and the native evaluator.
+   call of the programs, the live CV and the native evaluator;
+9. the replica sweep, bench.py's workload (bench.py:255-305): the main
+   path's task (plain step, 12 epochs) swept over an 8 x 8 grid of
+   learning rates and alphas, R = 64 replicas with models from seeds
+   0-63, through (a) AlignmentLayer('quaternion'), (b) FusedAlignmentLayer
+   (K2 twice per step at any R) and (c) (b) in bfloat16 'pure'; each
+   called twice, the second call timed: aggregate and device-window
+   samples/s, the ratio to phase 4's solo steps, the busy share of one
+   profiled epoch, peak memory, K2 per captured epoch, the bound of a
+   sweep epoch, the task left untouched; replicas 0, 27 and 63 of (b)
+   against their solo runs in float32 (the training bar where two correct
+   float32 solo versions agree) and in float64 (every epoch); (c) against
+   (b) (the replicas' order by final loss, and their final losses at the
+   bf16 bar); an R = 8 sweep captured against eager, bit for bit, with K2
+   per captured epoch equal to R = 64's; R = 4 sweeps of the generator
+   (Gram), the committor, the AE and the RegAE (transfer) through K2, each
+   replica against its solo run the same way.
 
 The second-to-last line lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -184,6 +200,30 @@ NATIVE_ATOL = 1e-8
 # (float32 gradients sit ~3.6e-3 of their scale from float64's), so
 # float64's 1.1e-16 becomes ~7e-12; 1e-9 leaves two orders of margin
 F64_STEP_RTOL = 1e-9
+
+# phase 9: bench.py's sweep workload (bench.py:255-305): R = 64 replicas
+# of the main path's task, 12 epochs, an 8 x 8 grid of learning rates and
+# alphas, replica r's model from seed r; the replicas held against their
+# solo runs, the bf16 sweep against the float32 one at the JAX package's
+# bf16 bar (tests/test_compute_dtype.py:144,172), a narrower sweep captured
+# against eager, and R = 4 sweeps of the other families
+SWEEP_R, SWEEP_SIDE, SWEEP_EPOCHS, SWEEP_NARROW = 64, 8, 12, 8
+SWEEP_HELD = (0, 27, 63)
+SWEEP_BF16_TOL = dict(rtol=0.1, atol=0.05)
+# JAX's bf16 bar comes from a 3-epoch toy; at bench.py's scale a
+# replica's bf16 run may leave its float32 run's basin (the JAX package's
+# bf16 trajectories part by a median 33%, max 48% on hardware,
+# benchmarks/RESULTS.md:593-598). Held per sweep: the replicas' order by
+# final loss (Spearman correlation with the float32 sweep) and the share of
+# replicas whose final-epoch loss is within SWEEP_BF16_TOL
+SWEEP_BF16_RANK, SWEEP_BF16_SHARE = 0.9, 0.9
+# sweep replicas against their solo runs in float64 over every epoch:
+# replica 63's two correct float32 solo versions part by 9.7e-2 after its
+# loss blows up in epoch 4 (PERF.md §6, PR 12), ~1.6e6 float32 roundings,
+# so float64's ~1e-16 grows to ~2e-10; 1e-8 leaves margin (a run whose
+# float32 versions part further gets 100 x that gap x 2**-29)
+SWEEP_F64_RTOL = 1e-8
+FAMILY_R, FAMILY_EPOCHS = 4, 3
 
 KERNELS = {
     "kabsch_qcp": ("colvarsfinder_tpu_torch/csrc/kabsch.cu",
@@ -548,7 +588,8 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
 
 
 def make_task(cvf, traj_obj, ref, path, fused, method, epochs,
-              save_every=0, align_weights=None):
+              save_every=0, align_weights=None, model_seed=0, lr=LR,
+              alpha=ALPHA):
     if method == "fused":
         align = cvf.FusedAlignmentLayer(ref, list(range(N_ATOMS)))
     else:
@@ -560,9 +601,9 @@ def make_task(cvf, traj_obj, ref, path, fused, method, epochs,
                                       list(range(N_ATOMS)))]),
     )
     return cvf.EigenFunctionTask(
-        traj_obj, pp, cvf.EigenFunctions(list(DIMS), K, seed=0), path,
-        alpha=ALPHA, eig_weights=EIG_W, lag_tau=LAG * DT,
-        learning_rate=LR, save_model_every_step=save_every, k=K,
+        traj_obj, pp, cvf.EigenFunctions(list(DIMS), K, seed=model_seed),
+        path, alpha=alpha, eig_weights=EIG_W, lag_tau=LAG * DT,
+        learning_rate=lr, save_model_every_step=save_every, k=K,
         batch_size=BATCH, num_epochs=epochs, test_ratio=TEST_RATIO,
         verbose=False, tensorboard=False, seed=0, debug_mode=False,
         fused_step=fused, progress_interval=1,
@@ -760,27 +801,31 @@ def phase_profile(runs, epochs=2, chunk=10):
 
 
 def make_dirichlet(cvf, kind, traj_obj, ref, path, epochs, regions=None,
-                   **kw):
+                   method="fused", **kw):
     """A generator EigenFunctionTask (``gen_*``) or a CommittorTask
     (``com_*``) through FusedAlignmentLayer and position features, on the
-    Gram path unless ``kind`` ends in ``vjp``."""
+    Gram path unless ``kind`` ends in ``vjp``; ``method`` other than
+    'fused' takes AlignmentLayer(method=method); ``kw`` overrides the
+    task's arguments."""
     atoms = list(range(N_ATOMS))
+    align = (cvf.FusedAlignmentLayer(ref, atoms) if method == "fused"
+             else cvf.AlignmentLayer(ref, atoms, method=method))
     pp = cvf.PreprocessingANN(
-        cvf.FusedAlignmentLayer(ref, atoms),
-        cvf.FeatureLayer([cvf.Feature("p", "position", atoms)]))
+        align, cvf.FeatureLayer([cvf.Feature("p", "position", atoms)]))
     args = dict(learning_rate=LR, save_model_every_step=0,
                 batch_size=BATCH, num_epochs=epochs, test_ratio=TEST_RATIO,
                 verbose=False, tensorboard=False, seed=0, debug_mode=False,
                 progress_interval=1, diag_coeff=GEN_DIAG, beta=GEN_BETA,
-                gram_pp=not kind.endswith("vjp"), **kw)
+                gram_pp=not kind.endswith("vjp"), alpha=ALPHA)
+    args.update(kw)
     if kind.startswith("gen"):
         return cvf.EigenFunctionTask(
             traj_obj, pp, cvf.EigenFunctions(list(DIMS), K, seed=0), path,
-            alpha=ALPHA, eig_weights=EIG_W, lag_tau=0.0, k=K,
+            eig_weights=EIG_W, lag_tau=0.0, k=K,
             gram_dtype="bfloat16" if kind == "gen_bf16" else None, **args)
     return cvf.CommittorTask(
         traj_obj, pp, cvf.create_sequential_nn(list(DIMS), seed=0), path,
-        region_a=regions[0], region_b=regions[1], alpha=ALPHA, **args)
+        region_a=regions[0], region_b=regions[1], **args)
 
 
 def dirichlet_profile(task, epochs=2):
@@ -846,14 +891,12 @@ def second_order_check(cvf, ref, traj_np, w_np):
     return err, norm
 
 
-def phase_dirichlet(card, ref, traj_np, w_np, cvf):
-    """Phase 6: the generator and the committor on phase 4's frames."""
-    from colvarsfinder_tpu_torch.ops import _cuda
+def committor_regions(ref, traj_np):
+    """The committor's sets A and B: the frames below and above the
+    COMMITTOR_Q quantiles of the first aligned coordinate."""
     from colvarsfinder_tpu_torch.ops.alignment import align_frames
 
     dev = torch.device("cuda")
-    traj_obj = cvf.WeightedTrajectory(trajectory=traj_np, weights=w_np,
-                                      dt=DT, verbose=False)
     with torch.no_grad():
         first = align_frames(torch.from_numpy(traj_np).to(dev),
                              torch.from_numpy(ref - ref.mean(0)).to(dev),
@@ -863,6 +906,16 @@ def phase_dirichlet(card, ref, traj_np, w_np, cvf):
     regions = (c < lo, c > hi)
     log(f"  committor regions: {int(regions[0].sum())} frames in A, "
         f"{int(regions[1].sum())} in B")
+    return regions
+
+
+def phase_dirichlet(card, ref, traj_np, w_np, cvf):
+    """Phase 6: the generator and the committor on phase 4's frames."""
+    from colvarsfinder_tpu_torch.ops import _cuda
+
+    traj_obj = cvf.WeightedTrajectory(trajectory=traj_np, weights=w_np,
+                                      dt=DT, verbose=False)
+    regions = committor_regions(ref, traj_np)
     runs, out = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for kind in ("gen_gram", "gen_vjp", "gen_bf16", "com_gram",
@@ -964,12 +1017,13 @@ def phase_dirichlet(card, ref, traj_np, w_np, cvf):
 
 
 def make_ae(cvf, kind, traj_obj, ref, path, epochs, method="fused",
-            save_every=0, align_weights=None, seed=0):
+            save_every=0, align_weights=None, seed=0, **hyper):
     """An AutoEncoderTask (``ae``) or a RegAutoEncoderTask with all six
     terms: transfer regularizer (``reg``, ``freeze`` with the encoder
     frozen) or generator regularizer on the Gram or vjp path (``gen_gram``,
     ``gen_vjp``); the alignment is FusedAlignmentLayer, or
-    AlignmentLayer(method=method); the model's weights from ``seed``."""
+    AlignmentLayer(method=method); the model's weights from ``seed``;
+    ``hyper`` overrides the learning rate and term weights."""
     atoms = list(range(N_ATOMS))
     if method == "fused":
         align = cvf.FusedAlignmentLayer(ref, atoms)
@@ -985,13 +1039,13 @@ def make_ae(cvf, kind, traj_obj, ref, path, epochs, method="fused",
     if kind == "ae":
         return cvf.AutoEncoderTask(traj_obj, pp,
                                    cvf.AutoEncoder(*AE_DIMS, seed=seed), path,
-                                   **args)
+                                   **{**args, **hyper})
     gen = kind.startswith("gen")
     return cvf.RegAutoEncoderTask(
         traj_obj, pp, cvf.RegAutoEncoder(*AE_DIMS, AE_REG_DIMS, K, seed=seed),
         path, lag_tau_ae=LAG * DT, lag_tau_reg=0.0 if gen else LAG * DT,
         gram_pp=(kind == "gen_gram") if gen else None,
-        freeze_encoder=kind == "freeze", **REG_TERMS, **args)
+        freeze_encoder=kind == "freeze", **{**REG_TERMS, **args, **hyper})
 
 
 def check_launches(label, got, want):
@@ -1497,6 +1551,438 @@ def phase_export(card, runs, traj_np, cvf):
     return out
 
 
+def sweep_grid(R):
+    """bench.py's lr x alpha grid: replica r takes the (r mod side)-th
+    learning rate and the (r div side)-th alpha."""
+    side = SWEEP_SIDE
+    lrs = np.geomspace(5e-4, 2e-2, side)
+    alphas = np.geomspace(5.0, 80.0, side)
+    return {"learning_rate": [float(lrs[r % side]) for r in range(R)],
+            "alpha": [float(alphas[r // side]) for r in range(R)]}
+
+
+def task_state(task):
+    """What a sweep must leave as it was: the parameters and optimizer
+    state (values), and the task's attributes (objects)."""
+    sd = task.optimizer.state_dict()["state"]
+    return ([p.detach().clone() for p in task.model.parameters()],
+            {i: {k: v.clone() for k, v in st.items()} for i, st in sd.items()},
+            dict(task.__dict__))
+
+
+def check_untouched(label, task, before):
+    params, state, attrs = before
+    ok = all(torch.equal(a, b.detach())
+             for a, b in zip(params, task.model.parameters()))
+    now = task.optimizer.state_dict()["state"]
+    ok &= now.keys() == state.keys() and all(
+        torch.equal(state[i][k], now[i][k]) for i in state for k in state[i])
+    changed = sorted(k for k in task.__dict__
+                     if k not in attrs or task.__dict__[k] is not attrs[k])
+    # the one attribute a sweep may fill, as train() would: the prepared
+    # batches (and the Gram path decision made with them)
+    changed = [k for k in changed if k not in ("_prepared", "_gram")]
+    if not ok or changed:
+        raise AssertionError(f"{label}: the sweep changed the task "
+                             f"(parameters and optimizer state equal: {ok}, "
+                             f"attributes replaced: {changed})")
+
+
+def sweep_bound(R, nb_train, nb_test, epochs):
+    """The least time of one sweep epoch on the card: the larger of the
+    bytes it must move (the features of X and X_l and the weights of each
+    batch read once, the parameters read and written once per step) over
+    the HBM rate, and its f32 operations over the f32 peak: per replica and
+    sample the heads' products forward (2 x sum d_in d_out per head, for X
+    and X_l) on every batch, and twice that backward on the train batches
+    (the input gradient of the first layer is not needed: about 2x)."""
+    macs = sum(a * b for a, b in zip(DIMS[:-1], DIMS[1:]))
+    fwd = 2.0 * macs * K * 2 * BATCH  # X and X_l, per replica and batch
+    flops = R * fwd * (3 * nb_train + nb_test)
+    n_params = K * sum(a * b + b for a, b in zip(DIMS[:-1], DIMS[1:]))
+    nbytes = 4.0 * ((nb_train + nb_test) * BATCH * (2 * 3 * N_ATOMS + 2)
+                    + nb_train * R * n_params * 2 * 4)
+    t, by = bound(nbytes, flops)
+    return t * epochs, by, flops, nbytes
+
+
+def phase_sweep(card, ref, traj_np, w_np, cvf, runs):
+    """Phase 9: the replica sweep at the main path's width."""
+    from colvarsfinder_tpu_torch.ops import _cuda
+    from colvarsfinder_tpu_torch.parallel import (
+        ensemble,
+        train_hyperparameter_sweep,
+    )
+
+    traj_obj = cvf.WeightedTrajectory(trajectory=traj_np, weights=w_np,
+                                      dt=DT, verbose=False)
+    R = SWEEP_R
+    grid = sweep_grid(R)
+    models = [cvf.EigenFunctions(list(DIMS), K, seed=r) for r in range(R)]
+    out, sweeps = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, method, cdt in (("a quaternion f32", "quaternion", None),
+                                   ("b fused f32", "fused", None),
+                                   ("c fused bf16", "fused", "bfloat16")):
+            task = make_task(cvf, traj_obj, ref, f"{tmp}/{label[0]}", False,
+                             method, SWEEP_EPOCHS)
+            before = task_state(task)
+            ensemble.release_sweeps()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            kw = dict(models=models, compute_dtype=cdt)
+            t0 = time.perf_counter()
+            train_hyperparameter_sweep(task, grid, **kw)
+            first_s = time.perf_counter() - t0
+            reps = next(reversed(ensemble._SWEEPS.values()))
+            graph = reps.graph
+            torch.cuda.synchronize()
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            res = train_hyperparameter_sweep(task, grid, **kw)
+            wall = time.perf_counter() - t0
+            counts = _cuda.launch_counts()
+            device_s = ensemble.last_run_seconds
+            if reps.graph is not graph:
+                raise AssertionError(f"{label}: the second call captured "
+                                     "again")
+            check_untouched(label, task, before)
+            nb_train, nb_test = reps.nb_train, len(reps.test[0])
+            samples = R * SWEEP_EPOCHS * nb_train * BATCH
+            # one profiled epoch (a replay) for the busy share
+            task.num_epochs = 1
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                train_hyperparameter_sweep(task, grid, **kw)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            task.num_epochs = SWEEP_EPOCHS
+            acts = device_activities(prof)
+            busy = sum(e.self_device_time_total for e in acts) * 1e-6
+            for r in res:
+                if not np.isfinite(r.train_loss).all():
+                    raise AssertionError(f"{label}: non-finite metrics")
+            k2_epoch = reps.graph.launches["fused_align"]
+            row = dict(
+                aggregate_samples_per_s=samples / wall,
+                device_window_samples_per_s=samples / device_s,
+                first_call_s=first_s, second_call_s=wall,
+                device_window_s=device_s,
+                vs_solo_plain=samples / wall / runs["plain"]["sps"],
+                vs_solo_fused=samples / wall / runs["fused"]["sps"],
+                busy_share=busy / prof_wall,
+                steady_busy_share=busy / (device_s / SWEEP_EPOCHS),
+                device_ms_per_epoch=busy * 1e3,
+                peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+                k2_per_captured_epoch=k2_epoch,
+                k2_launches=counts["fused_align"])
+            log(f"  {label}: R={R}, {SWEEP_EPOCHS} epochs x {nb_train} steps "
+                f"of {BATCH}: first call {first_s:.3f} s (eager epoch + "
+                f"capture), second {wall:.4f} s -> "
+                f"{row['aggregate_samples_per_s']:,.0f} samples/s aggregate "
+                f"(device window {device_s:.4f} s: "
+                f"{row['device_window_samples_per_s']:,.0f}); "
+                f"{row['vs_solo_plain']:.2f}x phase 4's solo plain step, "
+                f"{row['vs_solo_fused']:.2f}x its fused step; one profiled "
+                f"epoch: device {busy * 1e3:.3f} ms of {prof_wall * 1e3:.3f} "
+                f"ms wall, the call's host work included (busy "
+                f"{100 * row['busy_share']:.1f}%; of the unprofiled epoch in "
+                f"the device window: {100 * row['steady_busy_share']:.1f}%); "
+                f"peak memory "
+                f"{row['peak_memory_gib']:.2f} GiB; K2 {k2_epoch} per "
+                f"captured epoch, {counts['fused_align']} in the second call "
+                f"({card})")
+            top = sorted(acts, key=lambda e: -e.self_device_time_total)[:5]
+            for e in top:
+                log(f"    {e.self_device_time_total / 1e3:9.3f} ms/epoch "
+                    f"{e.count:6d}x  {e.key[:70]}")
+            want = 2 * SWEEP_EPOCHS * (nb_train + nb_test)
+            if counts != {**dict.fromkeys(counts, 0),
+                          "fused_align": want if method == "fused" else 0}:
+                raise AssertionError(f"{label}: launches {counts}")
+            out[label] = row
+            sweeps[label] = (task, res)
+        t_bound, by, flops, nbytes = sweep_bound(R, nb_train, nb_test, 1)
+        act_mb = R * K * BATCH * DIMS[1] * 4 / 1e6
+        log(f"  bound of one sweep epoch at R={R}: {t_bound:.4f} ms by "
+            f"{by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB); one "
+            f"[R, k, B, {DIMS[1]}] f32 activation is {act_mb:.1f} MB")
+        out["bound_ms_per_epoch"] = t_bound
+
+        # the replicas of run (b) against their solo runs
+        btask, bres = sweeps["b fused f32"]
+        out["held"] = held_replicas(cvf, traj_obj, ref, tmp, grid, bres)
+        # (c) against (b), replica by replica, over the epochs where the
+        # two float32 versions of the replica, (a) and (b), agree within
+        # the training bar (past them float32 rounding alone parts a run)
+        ares = sweeps["a quaternion f32"][1]
+        cres = sweeps["c fused bf16"][1]
+        out["bf16_vs_f32"] = bf16_hold(ares, bres, cres)
+        # a narrower sweep: captured against eager, K2 per captured epoch
+        n = SWEEP_NARROW
+        sub = {k: v[:n] for k, v in grid.items()}
+        ensemble.release_sweeps()
+        cap = train_hyperparameter_sweep(btask, sub, models=models[:n])
+        reps = next(reversed(ensemble._SWEEPS.values()))
+        eager = train_hyperparameter_sweep(btask, sub, models=models[:n],
+                                           _eager=True)
+        same = all(np.array_equal(a.train_loss, b.train_loss)
+                   and np.array_equal(a.test_loss, b.test_loss)
+                   and all(torch.equal(a.model[k], b.model[k])
+                           for k in a.model)
+                   for a, b in zip(cap, eager))
+        k2_narrow = reps.graph.launches["fused_align"]
+        log(f"  R={n} sweep, captured vs eager, {SWEEP_EPOCHS} epochs: every "
+            f"replica's curves and final parameters bit for bit equal: "
+            f"{same}; K2 per captured epoch {k2_narrow} (R={R}: "
+            f"{out['b fused f32']['k2_per_captured_epoch']})")
+        if not same:
+            raise AssertionError("the captured sweep differs from the eager "
+                                 "one")
+        if k2_narrow != out["b fused f32"]["k2_per_captured_epoch"]:
+            raise AssertionError("K2 launches per sweep epoch depend on R")
+        out["k2_per_captured_epoch_narrow"] = k2_narrow
+        ensemble.release_sweeps()
+        torch.cuda.empty_cache()
+        out["families"] = family_sweeps(card, ref, traj_np, traj_obj, cvf,
+                                        tmp)
+    return out
+
+
+def bf16_hold(ares, bres, cres):
+    """The bf16 sweep (c) against the float32 one (b). Held: the share of
+    replicas whose final-epoch loss (what a sweep ranks by) is within
+    SWEEP_BF16_TOL of its float32 value at least SWEEP_BF16_SHARE, the
+    replicas' order by final loss kept (Spearman correlation at least
+    SWEEP_BF16_RANK), and the curves not equal (the mode engaged).
+    Reported: the replicas within the bar at every epoch; at a high
+    learning rate the loss spikes in the first epochs, and bf16 rounding
+    changes the spikes."""
+    def ratio(c, b):
+        return np.abs(c - b) / (SWEEP_BF16_TOL["atol"]
+                                + SWEEP_BF16_TOL["rtol"] * np.abs(b))
+
+    fb = np.stack([b.train_loss[:, 0] for b in bres])
+    fc = np.stack([c.train_loss[:, 0] for c in cres])
+    fa = np.stack([a.train_loss[:, 0] for a in ares])
+    per_epoch = ratio(fc, fb)  # [R, epochs], <= 1 within the bar
+    final = per_epoch[:, -1]
+    # replicas whose two float32 sweeps agree within the training bar at
+    # every epoch: float32 rounding alone does not part them
+    f32_gap = np.abs(fa - fb) / np.abs(fb)
+    for r in np.flatnonzero(final > 1):
+        log(f"    replica {r} {bres[r].hyperparams}: final-epoch bf16 "
+            f"{fc[r, -1]:.3f} vs f32 {fb[r, -1]:.3f} ({final[r]:.3f} of the "
+            f"bar); its two float32 sweeps part by {f32_gap[r].max():.3e}")
+    whole = int((per_epoch <= 1).all(axis=1).sum())
+    rank_b = np.argsort(np.argsort(fb[:, -1]))
+    rank_c = np.argsort(np.argsort(fc[:, -1]))
+    rho = float(np.corrcoef(rank_b, rank_c)[0, 1])
+    f32_versions = float(np.max(np.abs(fa - fb) / np.abs(fb)))
+    worst_r, worst_e = np.unravel_index(per_epoch.argmax(), per_epoch.shape)
+    log(f"  bf16 vs f32 sweep: final-epoch loss within the bar "
+        f"{SWEEP_BF16_TOL} for {int((final <= 1).sum())} of {len(final)} "
+        f"replicas (largest {final.max():.3f} of the bar); every epoch "
+        f"within it for {whole} of {len(final)} (largest "
+        f"{per_epoch.max():.3f} of the bar, replica {int(worst_r)}, epoch "
+        f"{int(worst_e)}); Spearman correlation of the final losses "
+        f"{rho:.4f} (at least "
+        f"{SWEEP_BF16_RANK}); the two float32 sweeps (a, b) part by at most "
+        f"{f32_versions:.3e}; parameters "
+        f"{sorted({str(v.dtype) for v in cres[0].model.values()})}")
+    for r in np.argsort(-per_epoch.max(axis=1))[:4]:
+        log(f"    replica {r} {bres[r].hyperparams}: f32 "
+            f"{np.round(fb[r], 2).tolist()}, bf16 "
+            f"{np.round(fc[r], 2).tolist()}")
+    if np.array_equal(fb, fc):
+        raise AssertionError("the bf16 sweep equals the float32 one")
+    if (final <= 1).mean() < SWEEP_BF16_SHARE:
+        raise AssertionError(f"bf16: the final-epoch loss of only "
+                             f"{int((final <= 1).sum())} replicas within "
+                             f"{SWEEP_BF16_TOL}")
+    if rho < SWEEP_BF16_RANK:
+        raise AssertionError(f"bf16 reorders the replicas: Spearman {rho}")
+    return dict(final_within_bar=int((final <= 1).sum()),
+                every_epoch_within_bar=whole,
+                largest_bar_ratio=float(per_epoch.max()),
+                spearman_final=rho, f32_versions_max_rel=f32_versions)
+
+
+def hold_against_solo(label, res, replicas, make_solo, cols, sweep_f64):
+    """Sweep replicas against their solo runs. ``res[i]`` is replica
+    ``replicas[i]``; ``make_solo(r, method)`` builds replica r's solo task
+    through K2 ('fused') or the plain layer ('quaternion'); ``sweep_f64()``
+    sweeps the same replicas again (run in float64).
+
+    In float32 each replica is held to the training bar over the epochs
+    where its solo runs through K2 and through the plain layer, two correct
+    float32 versions, agree within it (possibly none): past them float32
+    rounding alone parts a run (a loss that blows up amplifies it). Over
+    every epoch the float64 sweep is held against the float64 solo runs
+    within
+    SWEEP_F64_RTOL, or, where the float32 versions part by g, within 100 g
+    times the ratio of float64's unit roundoff to float32's (the same
+    amplification of a rounding 2**29 times smaller), and equal final
+    cvec."""
+    from colvarsfinder_tpu_torch.config import set_default_dtype
+
+    out, gaps = {}, {}
+    for i, r in enumerate(replicas):
+        solo, plain = make_solo(r, "fused"), make_solo(r, "quaternion")
+        solo.train()
+        plain.train()
+        held, row = len(solo.train_loss), {}
+        for col, name in cols:
+            rtol = CURVE_RTOL["loss"] if col == 0 else CURVE_RTOL["eig_1"]
+            b, c = solo.train_loss[:, col], plain.train_loss[:, col]
+            over = np.flatnonzero(np.abs(c - b) / np.abs(b) > rtol)
+            held = min(held, int(over[0]) if over.size else len(b))
+        row["held_epochs"] = held
+        gap = 0.0
+        for col, name in cols:
+            rtol = CURVE_RTOL["loss"] if col == 0 else CURVE_RTOL["eig_1"]
+            a = res[i].train_loss[:, col]
+            b, c = solo.train_loss[:, col], plain.train_loss[:, col]
+            rel = np.abs(a - b) / np.abs(b)
+            versions = float(np.max(np.abs(c - b) / np.abs(b)))
+            gap = max(gap, versions)
+            row[name] = float(rel.max())
+            row[name + "_solo_versions"] = versions
+            held_rel = float(rel[:held].max()) if held else float("nan")
+            log(f"  {label} replica {r}, {name}: sweep vs solo max relative "
+                f"difference {held_rel:.3e} over the {held} "
+                f"epochs where the solo runs through K2 and through the "
+                f"plain layer agree within the training bar ({rtol}), "
+                f"{row[name]:.3e} over all {len(a)}; the two solo runs part "
+                f"by {versions:.3e}")
+            np.testing.assert_allclose(a[:held], b[:held], rtol=rtol)
+        if held == len(solo.train_loss) and res[i].cvec is not None and \
+                not np.array_equal(res[i].cvec, solo._cvec):
+            raise AssertionError(f"{label} replica {r}: cvec {res[i].cvec} "
+                                 f"!= {solo._cvec}")
+        gaps[r] = gap
+        out[r] = row
+
+    set_default_dtype("float64")
+    try:
+        res64 = sweep_f64()
+        for i, r in enumerate(replicas):
+            solo = make_solo(r, "fused")
+            solo.train()
+            bar = max(SWEEP_F64_RTOL, 100.0 * gaps[r] * 2.0**-29)
+            rel = float(np.max(np.abs(res64[i].train_loss - solo.train_loss)
+                               / np.abs(solo.train_loss)))
+            log(f"  {label} replica {r} in float64, sweep vs solo: max "
+                f"relative difference {rel:.3e} over every metric of every "
+                f"epoch (tolerance {bar:.3e})")
+            np.testing.assert_allclose(res64[i].train_loss, solo.train_loss,
+                                       rtol=bar)
+            if res64[i].cvec is not None and not np.array_equal(
+                    res64[i].cvec, solo._cvec):
+                raise AssertionError(f"{label} replica {r} (float64): cvec "
+                                     f"{res64[i].cvec} != {solo._cvec}")
+            out[r]["f64_max_rel"] = rel
+    finally:
+        set_default_dtype("float32")
+    return out
+
+
+def held_replicas(cvf, traj_obj, ref, tmp, grid, bres):
+    """Replicas SWEEP_HELD of run (b) against their solo runs: the same
+    model seed, learning rate and alpha (:func:`hold_against_solo`)."""
+    from colvarsfinder_tpu_torch.parallel import (
+        ensemble,
+        train_hyperparameter_sweep,
+    )
+
+    def make_solo(r, method):
+        return make_task(cvf, traj_obj, ref, f"{tmp}/solo {method}{r}", False,
+                         method, SWEEP_EPOCHS, model_seed=r,
+                         lr=grid["learning_rate"][r], alpha=grid["alpha"][r])
+
+    def sweep_f64():
+        sub = {k: [v[r] for r in SWEEP_HELD] for k, v in grid.items()}
+        task = make_task(cvf, traj_obj, ref, f"{tmp}/f64", False, "fused",
+                         SWEEP_EPOCHS)
+        models = [cvf.EigenFunctions(list(DIMS), K, seed=r)
+                  for r in SWEEP_HELD]
+        res = train_hyperparameter_sweep(task, sub, models=models)
+        ensemble.release_sweeps()
+        return res
+
+    return hold_against_solo("sweep (b)", [bres[r] for r in SWEEP_HELD],
+                             SWEEP_HELD, make_solo,
+                             ((0, "loss"), (3, "eig_1")), sweep_f64)
+
+
+def family_sweeps(card, ref, traj_np, traj_obj, cvf, tmp):
+    """R = 4 sweeps of the other families through FusedAlignmentLayer, each
+    replica against its solo run within the training bar."""
+    from colvarsfinder_tpu_torch.ops import _cuda
+    from colvarsfinder_tpu_torch.parallel import (
+        ensemble,
+        train_hyperparameter_sweep,
+    )
+
+    regions = committor_regions(ref, traj_np)
+    R, E = FAMILY_R, FAMILY_EPOCHS
+    lrs = [float(v) for v in np.geomspace(1e-3, 4e-3, R)]
+    cases = {
+        "generator gram": (
+            lambda p, **h: make_dirichlet(cvf, "gen_gram", traj_obj, ref, p,
+                                          E, **h),
+            {"learning_rate": lrs, "alpha": [5.0, 10.0, 20.0, 40.0]},
+            ((0, "loss"), (3, "eig_1"))),
+        "committor": (
+            lambda p, **h: make_dirichlet(cvf, "com_gram", traj_obj, ref, p,
+                                          E, regions, **h),
+            {"learning_rate": lrs, "beta": [0.5, 1.0, 2.0, 4.0]},
+            ((0, "loss"), (1, "dirichlet"))),
+        "autoencoder": (
+            lambda p, **h: make_ae(cvf, "ae", traj_obj, ref, p, E, **h),
+            {"learning_rate": lrs}, ((0, "loss"),)),
+        "regae transfer": (
+            lambda p, **h: make_ae(cvf, "reg", traj_obj, ref, p, E, **h),
+            {"learning_rate": lrs,
+             "gamma": [[0.7, 3.0], [0.5, 2.0], [1.0, 1.0], [0.7, 4.0]]},
+            ((0, "loss"), (4, "eig_0"))),
+    }
+    attr = {"learning_rate": "learning_rate", "alpha": "alpha",
+            "beta": "beta", "gamma": "gamma"}
+    out = {}
+    for name, (make, grid, cols) in cases.items():
+        task = make(f"{tmp}/{name}")
+        before = task_state(task)
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = train_hyperparameter_sweep(task, grid)
+        wall = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        check_untouched(name, task, before)
+        ensemble.release_sweeps()
+        log(f"  {name}: R={R} sweep, {E} epochs in {wall:.3f} s (first call, "
+            f"capture included), {counts['fused_align']} K2 launches "
+            f"({card})")
+
+        def make_solo(r, method, make=make, grid=grid, name=name):
+            hyper = {attr[k]: v[r] for k, v in grid.items()}
+            return make(f"{tmp}/{name} solo {method}{r}", method=method,
+                        **hyper)
+
+        def sweep_f64(make=make, grid=grid, name=name):
+            res = train_hyperparameter_sweep(make(f"{tmp}/{name} f64"), grid)
+            ensemble.release_sweeps()
+            return res
+
+        out[name] = dict(
+            wall_s=wall, k2_launches=counts["fused_align"],
+            replicas=hold_against_solo(name, res, range(R), make_solo, cols,
+                                       sweep_f64))
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1537,9 +2023,15 @@ def main():
     autoencoders = phase_autoencoders(card, ref, traj_np, w_np, cvf)
     log("phase 8: export and deploy")
     export = phase_export(card, runs, traj_np, cvf)
+    log("phase 9: the replica sweep")
+    sweep = phase_sweep(card, ref, traj_np, w_np, cvf, runs)
     launches = {"kabsch_qcp": runs["k1"]["counts"]["kabsch_qcp"]}
     for name in ("fused_align", "stats_fwd", "stats_bwd"):
         launches[name] = runs["fused"]["counts"][name]
+    # K2 on the main path and on the sweep's (run b's second call)
+    launches["fused_align"] += sweep["b fused f32"]["k2_launches"]
+    log(f"K2 launches: main path {runs['fused']['counts']['fused_align']}, "
+        f"sweep {sweep['b fused f32']['k2_launches']}")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kern[name]
@@ -1559,6 +2051,7 @@ def main():
         "dirichlet": dirichlet,
         "autoencoders": autoencoders,
         "export": export,
+        "sweep": sweep,
     }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,8 @@ r"""colvarsfinder-tpu, PyTorch/CUDA port.
 
 A second package beside the JAX reference ``colvarsfinder_tpu``: the same
 API for eigenfunction training (generator and transfer operator),
-committor training and (regularized) autoencoder training, written in
+committor training, (regularized) autoencoder training and replica
+sweeps of them (``parallel``), written in
 PyTorch, with the JAX package's four Pallas TPU kernels rewritten as CUDA
 kernels for Hopper (``csrc/``). It imports neither JAX nor the JAX
 package. Entry points run on ``cuda`` unless the caller passes
@@ -10,7 +11,7 @@ package. Entry points run on ``cuda`` unless the caller passes
 PyTorch version.
 """
 
-from . import config, core, models, ops, utils
+from . import config, core, models, ops, parallel, utils
 from .core import (
     AutoEncoderTask,
     CommittorTask,
@@ -75,5 +76,6 @@ __all__ = [
     "core",
     "models",
     "ops",
+    "parallel",
     "utils",
 ]

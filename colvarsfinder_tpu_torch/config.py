@@ -1,9 +1,10 @@
 """Global numerics configuration of the PyTorch port.
 
-Counterpart of ``colvarsfinder_tpu/config.py:30-88``: a default floating
-dtype for parameters and trajectories, and the precision of float32
-matrix products. On an NVIDIA card "high" lets cuBLAS use TF32 tensor
-cores (about three decimal digits); "highest" keeps every float32
+Counterpart of ``colvarsfinder_tpu/config.py:30-205``: a default floating
+dtype for parameters and trajectories, the precision of float32 matrix
+products, and the bfloat16 compute mode of the networks (its activation
+dtype and arithmetic style). On an NVIDIA card "high" lets cuBLAS use TF32
+tensor cores (about three decimal digits); "highest" keeps every float32
 product in full float32. The parity tests and ``chip_smoke.py`` pin
 "highest", which is also PyTorch's own default for matmuls. Convolutions
 are not used, but cuDNN's TF32 switch is set with the matmul switch so the
@@ -20,6 +21,12 @@ __all__ = [
     "set_default_dtype",
     "default_dtype",
     "resolve_device",
+    "set_compute_dtype",
+    "compute_dtype",
+    "compute_dtype_name",
+    "set_bf16_style",
+    "bf16_style",
+    "numerics_key",
 ]
 
 _NAMES = {
@@ -72,6 +79,93 @@ def set_default_dtype(dtype) -> None:
 def default_dtype() -> torch.dtype:
     """Current default floating dtype."""
     return _DTYPE
+
+
+_COMPUTE_DTYPE = "float32"
+
+
+def set_compute_dtype(dtype) -> None:
+    """Set the activation dtype of the networks' forward and backward
+    passes (``colvarsfinder_tpu/config.py:91-133``).
+
+    'float32' (default) keeps activations at full width. 'bfloat16' runs
+    the layers of :func:`..models.module.mlp_apply` and
+    :func:`..models.module.stacked_mlp_apply` in mixed precision: the
+    parameters, their gradients and the optimizer state stay float32, the
+    layers' inputs and activations are bfloat16 (the weights too, unless
+    the style is 'w32', :func:`set_bf16_style`), and the network output is
+    cast back to float32 before the loss. Refused under the float64
+    default dtype. Captured epochs and sweeps key on
+    :func:`numerics_key`, so a change re-captures instead of replaying a
+    stale graph.
+    """
+    global _COMPUTE_DTYPE
+    if dtype in ("float32", "bfloat16"):
+        name = dtype
+    elif isinstance(dtype, torch.dtype):
+        name = str(dtype).replace("torch.", "")
+    else:
+        import numpy as np
+
+        name = np.dtype(dtype).name
+    if name not in ("float32", "bfloat16"):
+        raise ValueError(
+            f"unsupported compute dtype {name!r}; "
+            "expected 'float32' or 'bfloat16'"
+        )
+    if name == "bfloat16" and _DTYPE == torch.float64:
+        raise ValueError(
+            "bfloat16 compute mode is incompatible with the float64 "
+            "default dtype (set_default_dtype('float32') first)"
+        )
+    _COMPUTE_DTYPE = name
+
+
+def compute_dtype() -> torch.dtype:
+    """Current activation dtype (``torch.float32`` or ``torch.bfloat16``)."""
+    return torch.bfloat16 if _COMPUTE_DTYPE == "bfloat16" else torch.float32
+
+
+def compute_dtype_name() -> str:
+    """Current activation dtype as its name."""
+    return _COMPUTE_DTYPE
+
+
+_BF16_STYLES = ("pure", "acc32", "w32")
+_BF16_STYLE = "pure"
+
+
+def set_bf16_style(style: str) -> None:
+    """Select the arithmetic of the bfloat16 compute mode
+    (``colvarsfinder_tpu/config.py:140-193``); activations are stored in
+    bfloat16 in every style:
+
+    - 'pure' (default): weights and bias cast to bfloat16, products with a
+      bfloat16 result, activation in bfloat16;
+    - 'acc32': bfloat16 weights and inputs, products accumulated in float32
+      with a float32 result, bias and activation in float32, then rounded
+      to bfloat16 for the next layer;
+    - 'w32': float32 weights, the bfloat16 activation upcast at the product
+      (float32 arithmetic); only the stored activations are rounded.
+    """
+    global _BF16_STYLE
+    if style not in _BF16_STYLES:
+        raise ValueError(
+            f"unknown bf16 style {style!r}; expected one of {_BF16_STYLES}"
+        )
+    _BF16_STYLE = style
+
+
+def bf16_style() -> str:
+    """Current bfloat16 arithmetic style ('pure' | 'acc32' | 'w32')."""
+    return _BF16_STYLE
+
+
+def numerics_key() -> tuple:
+    """What the numerics of a captured epoch depend on: the float32 matmul
+    precision, the default dtype, the activation dtype and the bfloat16
+    style (``colvarsfinder_tpu/config.py:201-205``)."""
+    return (matmul_precision(), _DTYPE, _COMPUTE_DTYPE, _BF16_STYLE)
 
 
 def resolve_device(device=None) -> torch.device:

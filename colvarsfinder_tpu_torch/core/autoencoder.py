@@ -7,8 +7,10 @@ each training step then runs on features only. An identity layer keeps the
 trajectory itself. The batches are gathered onto the device once, and an
 epoch is one call of :meth:`.task.TrainingTask._epoch_body`, captured as a
 CUDA graph on the card, as in :class:`.eigenfunction.EigenFunctionTask`.
-The JAX package's streaming layout is not ported (ROADMAP.md queue 1,
-item 13).
+In a replica sweep the features are those computed at construction (one
+K2 launch through ``FusedAlignmentLayer``), shared by every replica; the
+learning rate is the only sweepable hyperparameter. The JAX package's
+streaming layout is not ported (ROADMAP.md queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -130,6 +132,10 @@ class AutoEncoderTask(TrainingTask):
 
     def _graph_static(self):
         return (), (self.model,)
+
+    def _replica_loss(self, model, hyper, X, w):
+        loss = weighted_mse_loss(model, X, w)
+        return loss, loss.detach()[None]
 
     def _batch_metrics(self, X, w):
         """Loss and the metric row [loss] of one batch."""

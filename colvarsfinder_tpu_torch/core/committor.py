@@ -14,8 +14,11 @@ card, as in :class:`.eigenfunction.EigenFunctionTask`. The CV of
 :meth:`CommittorTask.colvar_model` is the logit :math:`g(r(x))`, a
 monotone transform of :math:`q` with the same level sets; the committor
 itself comes from :meth:`CommittorTask.committor_values` or
-:meth:`CommittorTask.committor_fn`. The JAX package's streaming layout is
-not ported (ROADMAP.md queue 1, item 13).
+:meth:`CommittorTask.committor_fn`. In a replica sweep ``alpha`` and
+``beta`` are sweepable, and the preprocessing layer runs outside the
+replica map as for the generator
+(:class:`.eigenfunction.EigenFunctionTask`). The JAX package's streaming
+layout is not ported (ROADMAP.md queue 1, item 13).
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from ..config import default_dtype
 from ..export import ColvarModel
 from ..ops.features import as_pp_layer
 from .eigenfunction import gram_batch
-from .losses import committor_loss
+from .losses import committor_loss, input_jacobian
 from .task import TrainingTask
 
 __all__ = ["CommittorTask"]
@@ -217,6 +220,32 @@ class CommittorTask(TrainingTask):
     def _graph_static(self):
         return ((self.alpha, self.beta, self._gram),
                 (self.model, self._pp_for_loss, self._diag_coeff))
+
+    # ------------------------------------------------------------------
+    # replica sweeps
+    def _static_config(self):
+        return super()._static_config() + (self._gram,)
+
+    def _hyper(self):
+        return {"alpha": self._hyper_tensor(self.alpha),
+                "beta": self._hyper_tensor(self.beta)}
+
+    def _replica_inputs(self, batch):
+        """``(H, M, w, a, b)``: the batch's features and Gram matrices,
+        on the vjp path computed here, per step."""
+        if self._gram:
+            return tuple(batch)
+        X, *rest = batch
+        with torch.no_grad():
+            H, M = gram_batch(self._pp_for_loss, X, self._diag_coeff,
+                              self.model.layer_dims[0])
+        return (H, M, *rest)
+
+    def _replica_loss(self, model, hyper, H, M, w, a, b):
+        loss, parts = committor_loss(model, None, H, w, a, b,
+                                     (hyper["alpha"], hyper["beta"]),
+                                     pp_gram=M, jac=input_jacobian)
+        return loss, torch.stack([loss, *parts]).detach()
 
     def _batch_metrics(self, *batch):
         """Loss and the metric row [loss, dirichlet, boundary_a,

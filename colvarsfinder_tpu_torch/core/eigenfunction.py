@@ -25,6 +25,16 @@ the counterpart of the JAX package's ``_multi_epoch_fn`` with ``prebatch``
 and ``unroll`` (``colvarsfinder_tpu/core/eigenfunction.py:193-291``).
 Per-step metrics stay on the device and reach the host once per chunk of
 epochs (the epochs up to the next checkpoint, plot or progress event).
+
+In a replica sweep (:mod:`..parallel.ensemble`) the preprocessing layer
+runs once per batch outside the replica map: the transfer operator's
+features of ``X`` and ``X_l`` (two K2 launches per step through
+``FusedAlignmentLayer``, at any replica count), the generator's
+precomputed Gram batches, or on the generator's vjp path the features and
+Gram matrices of the batch computed per step (:func:`gram_batch`; the
+chain rule through the layer, contracted with ``diag_coeff``, is the Gram
+form). Inside the map each replica differentiates its model alone
+(:func:`.losses.input_jacobian`).
 """
 
 from __future__ import annotations
@@ -43,12 +53,14 @@ from ..ops.fused_eigen import (
     params_t_of,
     transfer_stats,
 )
-from .losses import eigen_loss
+from .losses import eigen_loss, input_jacobian
 from .task import TrainingTask
 
 __all__ = ["EigenFunctionTask", "gram_batch"]
 
 
+#: the preprocessing of losses on features computed beforehand
+_IDENTITY = Identity()
 #: frames in one reverse pass of :func:`gram_batch` (replicas of a batch);
 #: the plain alignment's graph takes ~1.2 kB per frame
 GRAM_PASS_FRAMES = 1 << 20
@@ -312,6 +324,55 @@ class EigenFunctionTask(TrainingTask):
     def _chunk_fetched(self, train_cm):
         # cvec of the last train batch of the chunk's last epoch
         self._cvec = train_cm[-1, -1, len(self.loss_names):].astype(int)
+
+    # ------------------------------------------------------------------
+    # replica sweeps
+    def _static_config(self):
+        return super()._static_config() + (
+            self.k, self.lag_idx, self.traj_dt,
+            self._sort_eigvals_in_training, self.fused_step, self._gram,
+            self._gram_dtype, self.precompute_features)
+
+    def _hyper(self):
+        return {"alpha": self._hyper_tensor(self._alpha),
+                "eig_weights": self._hyper_tensor(self._eig_w),
+                "beta": self._hyper_tensor(self._beta)}
+
+    def _replica_inputs(self, batch):
+        """``(F, F_l, w, w_l)``, the features of the lagged pair (transfer
+        operator), or ``(H, M, w)``, the features and Gram matrices of the
+        batch (generator; on the vjp path computed here, per step)."""
+        with torch.no_grad():
+            if self.lag_idx > 0:
+                X, X_l, w, w_l = batch
+                F, F_l = (self._pp_for_loss(Z).reshape(Z.shape[0], -1)
+                          for Z in (X, X_l))
+                return F, F_l, w, w_l
+            if self._gram:
+                return tuple(batch)
+            X, w = batch
+            return gram_batch(self._pp_for_loss, X, self._diag_coeff,
+                              self.model.layer_dims[0]) + (w,)
+
+    def _replica_loss(self, model, hyper, *inputs):
+        common = dict(k=self.k, alpha=hyper["alpha"],
+                      eig_w=hyper["eig_weights"], beta=hyper["beta"],
+                      lag_idx=self.lag_idx, traj_dt=self.traj_dt,
+                      sort_eigvals=self._sort_eigvals_in_training,
+                      jac=input_jacobian)
+        if self.lag_idx > 0:
+            F, F_l, w, w_l = inputs
+            loss, aux = eigen_loss(model, _IDENTITY, F, w, F_l, w_l,
+                                   **common)
+        else:
+            H, M, w = inputs
+            loss, aux = eigen_loss(model, None, H, w, None, None,
+                                   pp_gram=M, **common)
+        return loss, torch.cat([
+            torch.stack([loss, aux.non_penalty_loss, aux.penalty]).detach(),
+            aux.eig_vals,
+            aux.cvec.to(loss.dtype),
+        ])
 
     def _batch_metrics(self, *batch):
         """Loss and the metric row [loss, non_penalty, penalty, eig_vals,

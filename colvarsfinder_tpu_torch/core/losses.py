@@ -10,8 +10,17 @@ input batch is the stack of every sample's gradient of head ``i``: k
 reverse-mode passes (``torch.autograd.grad``) give them all, as the JAX
 package's one ``jacrev`` of the batch's head sums does. In a training step
 they are taken with ``create_graph=True``, so the parameter gradient
-differentiates through them (double backprop). ``torch.func.vmap`` is not
-used: the kernel layers' ``autograd.Function``\ s have no vmap rule.
+differentiates through them (double backprop). Inside a replica map
+(``torch.func.vmap`` over stacked parameters, :mod:`..parallel.ensemble`)
+``torch.autograd.grad`` cannot run; there :func:`input_jacobian` takes the
+same passes with ``torch.func.vjp``, and a loss is given it as ``jac``. The
+preprocessing layer stays outside the map (its features, or its Gram
+matrices, are computed once per batch), since the kernel layers'
+``autograd.Function``\ s have no vmap rule.
+
+Every hyperparameter (``alpha``, ``beta``, ``eig_w`` and the RegAE's term
+weights) may be a Python float or a tensor: one captured sweep epoch
+serves R values of each.
 
 With a precomputed Gram matrix ``pp_gram`` (the Gram path), the input is
 the feature batch ``H = r(x)`` and the Dirichlet integrand
@@ -34,6 +43,7 @@ import torch
 __all__ = [
     "EigenAux",
     "committor_loss",
+    "input_jacobian",
     "eigen_loss",
     "enc_grad_loss",
     "enc_norm_loss",
@@ -104,6 +114,25 @@ def _input_jacobian(f_batched: Callable, X: torch.Tensor, k: int):
     return y, jac
 
 
+def input_jacobian(f_batched: Callable, X: torch.Tensor, k: int):
+    """:func:`_input_jacobian` in functional form, for use inside
+    ``torch.func.vmap``: ``(y, jac)`` with ``y = f_batched(X)`` [B, k] and
+    ``jac`` [k, B, prod(state)], one ``torch.func.vjp`` pass per head with
+    the cotangent of that head's batch sum. The passes are differentiable
+    by the transforms around them and by an ordinary backward outside the
+    map (double backprop), whatever the grad mode: under ``no_grad`` (the
+    test batches) the outputs carry no graph of the parameters. As in
+    :func:`_input_jacobian`, the passes run on the calling thread, so that
+    the nodes they record sort against the forward's the same way in every
+    run."""
+    with torch.autograd.set_multithreading_enabled(False):
+        y, vjp_fn = torch.func.vjp(f_batched, X)
+        eye = torch.eye(k, dtype=y.dtype, device=y.device)
+        jac = torch.stack([vjp_fn(eye[i].expand_as(y))[0]
+                           for i in range(k)])
+    return y, jac.reshape(k, X.shape[0], -1)
+
+
 def _grad_sq(jac: torch.Tensor, diag_coeff) -> torch.Tensor:
     """[B, k]: :math:`\\sum_d c_d (\\partial f_i/\\partial x_d)^2` from
     per-sample input gradients ``jac`` [k, B, D]."""
@@ -121,20 +150,45 @@ class _Bf16QuadraticForm(torch.autograd.Function):
     bf16 x bf16 -> f32 product is ``torch.bmm(..., out_dtype=torch.float32)``
     (cuBLAS with float32 accumulation and output), which has no autograd
     formula; the backward here gives ``dL/dG = g (M + M^T) G_b`` in float32,
-    as the rounding to bf16 passes the cotangent through."""
+    as the rounding to bf16 passes the cotangent through.
+
+    Under ``torch.func.vmap`` (a sweep's replicas) :meth:`vmap` folds the
+    replica dimension into the heads (M shared) or into the samples (M per
+    replica) and applies the form once."""
 
     @staticmethod
-    def forward(ctx, G, M):
+    def forward(G, M):
         Gb = G.to(torch.bfloat16).transpose(0, 1).contiguous()  # [B, k, d]
         GM = torch.bmm(Gb, M, out_dtype=torch.float32)
         GMt = torch.bmm(Gb, M.transpose(1, 2), out_dtype=torch.float32)
-        ctx.save_for_backward(GM + GMt)
-        return (GM * Gb.to(torch.float32)).sum(dim=-1)  # [B, k]
+        return (GM * Gb.to(torch.float32)).sum(dim=-1), GM + GMt  # [B, k]
 
     @staticmethod
-    def backward(ctx, g):
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(output[1])
+        ctx.mark_non_differentiable(output[1])
+        ctx.set_materialize_grads(False)
+
+    @staticmethod
+    def backward(ctx, g, _):
         (sym,) = ctx.saved_tensors
         return (g[:, :, None] * sym).transpose(0, 1), None
+
+    @staticmethod
+    def vmap(info, in_dims, G, M):
+        g_dim, m_dim = in_dims
+        R = info.batch_size
+        G = (G.movedim(g_dim, 0) if g_dim is not None
+             else G.expand(R, *G.shape))  # [R, k, B, d]
+        _, k, B, d = G.shape
+        if m_dim is None:
+            qf, sym = _Bf16QuadraticForm.apply(G.reshape(R * k, B, d), M)
+            return ((qf.reshape(B, R, k).movedim(1, 0),
+                     sym.reshape(B, R, k, d).movedim(1, 0)), (0, 0))
+        M = M.movedim(m_dim, 0).reshape(R * B, d, d)
+        G = G.transpose(0, 1).reshape(k, R * B, d)
+        qf, sym = _Bf16QuadraticForm.apply(G, M)
+        return (qf.reshape(R, B, k), sym.reshape(R, B, k, d)), (0, 0)
 
 
 def _gram_quadratic_form(G: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
@@ -147,7 +201,7 @@ def _gram_quadratic_form(G: torch.Tensor, M: torch.Tensor) -> torch.Tensor:
         if M.device.type == "cpu":
             M = M.to(G.dtype)
         else:
-            return _Bf16QuadraticForm.apply(G, M)
+            return _Bf16QuadraticForm.apply(G, M)[0]
     return torch.einsum("kbi,bij,kbj->bk", G, M, G)
 
 
@@ -188,6 +242,7 @@ def eigen_loss(
     traj_dt: float,
     sort_eigvals: bool,
     pp_gram: torch.Tensor | None = None,
+    jac: Callable = _input_jacobian,
 ):
     r"""Eigenfunction loss plus ``alpha`` times the orthonormality penalty
     (``colvarsfinder_tpu/core/losses.py:120-285``). Returns
@@ -201,16 +256,17 @@ def eigen_loss(
     is the precomputed feature batch, ``pp_layer`` and ``diag_coeff`` are
     not used, and the integrand is the quadratic form in the model-only
     Jacobian. Transfer operator (``lag_idx > 0``): lagged
-    square-difference quotients.
+    square-difference quotients. ``jac`` takes the per-sample input
+    gradients (:func:`input_jacobian` inside a replica map).
     """
     if pp_gram is not None:
         if lag_idx != 0:
             raise ValueError("pp_gram applies to the generator loss only")
-        y, G = _input_jacobian(model, X, k)
+        y, G = jac(model, X, k)
         grad_sq = _gram_quadratic_form(G, pp_gram)
     elif lag_idx == 0:
-        y, jac = _input_jacobian(lambda Xb: model(pp_layer(Xb)), X, k)
-        grad_sq = _grad_sq(jac, diag_coeff)
+        y, J = jac(lambda Xb: model(pp_layer(Xb)), X, k)
+        grad_sq = _grad_sq(J, diag_coeff)
     else:
         y = model(pp_layer(X))  # [B, k]
     tot_weight = weight.sum()
@@ -260,7 +316,7 @@ def eigen_loss(
 
 
 def committor_loss(model, pp_layer, X, weight, mask_a, mask_b, hyper,
-                   diag_coeff=None, pp_gram=None):
+                   diag_coeff=None, pp_gram=None, jac=_input_jacobian):
     r"""Variational committor loss (``colvarsfinder_tpu/core/losses.py:
     410-483``): with :math:`q = \sigma(g(r(x)))`,
 
@@ -281,22 +337,23 @@ def committor_loss(model, pp_layer, X, weight, mask_a, mask_b, hyper,
             [B, d_r, d_r], ``diag_coeff`` folded in; then
             :math:`\sum_d a_d (\partial_d q)^2 = \sigma'(z)^2\,G M G^T`
             with :math:`G = \partial z/\partial h`.
+        jac: the per-sample input gradients (:func:`input_jacobian`
+            inside a replica map).
 
     Returns ``(loss, (dirichlet, penalty_a, penalty_b))``, all scalars.
     """
     alpha, beta = hyper
     tot_weight = weight.sum()
     if pp_gram is not None:
-        z, G = _input_jacobian(model, X, 1)
+        z, G = jac(model, X, 1)
         q = torch.sigmoid(z[:, 0])
         sp = q * (1.0 - q)  # sigma'(z)
         grad_sq_vec = sp**2 * torch.einsum("bi,bij,bj->b", G[0], pp_gram,
                                            G[0])
     else:
-        q, jac = _input_jacobian(
-            lambda Xb: torch.sigmoid(model(pp_layer(Xb))), X, 1)
+        q, J = jac(lambda Xb: torch.sigmoid(model(pp_layer(Xb))), X, 1)
         q = q[:, 0]
-        grad_sq_vec = _grad_sq(jac, diag_coeff)[:, 0]
+        grad_sq_vec = _grad_sq(J, diag_coeff)[:, 0]
     dirichlet = (grad_sq_vec * weight).sum() / (beta * tot_weight)
     pen_a = (weight * mask_a * q**2).sum() / tot_weight
     pen_b = (weight * mask_b * (1.0 - q) ** 2).sum() / tot_weight
@@ -306,12 +363,13 @@ def committor_loss(model, pp_layer, X, weight, mask_a, mask_b, hyper,
 
 # ---------------------------------------------------------------------------
 # the regularized autoencoder's encoder constraints and regularizer
-def enc_grad_loss(encoder, pp_layer, X, weight, k: int) -> torch.Tensor:
+def enc_grad_loss(encoder, pp_layer, X, weight, k: int,
+                  jac: Callable = _input_jacobian) -> torch.Tensor:
     r"""Weighted mean squared norm of the encoder's gradients by the
     features ``Y = r(X)``, not by the raw coordinates, summed over its k
     outputs (``losses.py:293-303``)."""
-    _, jac = _input_jacobian(encoder, pp_layer(X), k)
-    grad_sq = _grad_sq(jac, None)  # [B, k]
+    _, J = jac(encoder, pp_layer(X), k)
+    grad_sq = _grad_sq(J, None)  # [B, k]
     return ((grad_sq * weight[:, None]).sum(dim=0) / weight.sum()).sum()
 
 
@@ -335,7 +393,8 @@ def enc_orthogonality_loss(encoder, pp_layer, X, weight,
 
 def reg_eigen_loss(model, pp_layer, X, weight, X_lagged, weight_lagged, *,
                    num_reg: int, eig_w, beta: float, diag_coeff, lag_idx: int,
-                   traj_dt: float, pp_gram: torch.Tensor | None = None):
+                   traj_dt: float, pp_gram: torch.Tensor | None = None,
+                   jac: Callable = _input_jacobian):
     r"""The eigenfunction regularizer of a regularized autoencoder: the
     eigenfunction objective of :func:`eigen_loss` on its regularizer heads
     ``model.forward_reg`` (``losses.py:324-407``), always sorted by
@@ -346,5 +405,6 @@ def reg_eigen_loss(model, pp_layer, X, weight, X_lagged, weight_lagged, *,
         model.forward_reg, pp_layer, X, weight, X_lagged, weight_lagged,
         k=num_reg, alpha=0.0, eig_w=eig_w, beta=beta, diag_coeff=diag_coeff,
         lag_idx=lag_idx, traj_dt=traj_dt, sort_eigvals=True, pp_gram=pp_gram,
+        jac=jac,
     )
     return aux.eig_vals, aux.non_penalty_loss, aux.penalty, aux.cvec

@@ -25,7 +25,11 @@ the encoder stay zero and its parameters do not move.
 The batches are gathered onto the device once, and an epoch is one call
 of :meth:`.task.TrainingTask._epoch_body`, captured as a CUDA graph on the
 card. The term and head weights are Python floats that a captured epoch
-bakes in, so the graph key holds them by value. The JAX package's streaming,
+bakes in, so the graph key holds them by value. In a replica sweep they
+are tensors, one value per replica, while the gates stay decided by the
+task's own values (``colvarsfinder_tpu/parallel/ensemble.py:920-938``);
+the features are computed once per batch outside the replica map, as for
+:class:`.eigenfunction.EigenFunctionTask`. The JAX package's streaming,
 ``prebatch`` and ``shard_trajectory`` layouts are not ported (ROADMAP.md
 queue 1, items 13 and 15).
 """
@@ -39,11 +43,12 @@ from ..config import default_dtype
 from ..export import ColvarModel
 from ..models.ae import RegAutoEncoder, RegModel
 from ..ops.features import Identity, as_pp_layer
-from .eigenfunction import gram_batch
+from .eigenfunction import _IDENTITY, gram_batch
 from .losses import (
     enc_grad_loss,
     enc_norm_loss,
     enc_orthogonality_loss,
+    input_jacobian,
     reg_eigen_loss,
     weighted_mse_lagged_loss,
 )
@@ -53,8 +58,6 @@ __all__ = ["RegAutoEncoderTask"]
 
 #: a term is on when its weight is above this (``regautoencoder.py:41``)
 _EPS = 1e-5
-#: the preprocessing of terms that read features computed beforehand
-_IDENTITY = Identity()
 
 
 class RegAutoEncoderTask(TrainingTask):
@@ -82,6 +85,12 @@ class RegAutoEncoderTask(TrainingTask):
             encoder_gradient, encoder_norm, encoder_orthogonality``
         train_loss_df / test_loss_df: the same as pandas DataFrames
     """
+
+    _GATES = {
+        "alpha": lambda v: float(v) > _EPS,
+        "gamma": lambda v: float(np.sum(v)) > _EPS,
+        "eta": lambda v: tuple(float(e) > _EPS for e in np.reshape(v, -1)),
+    }
 
     def __init__(
         self,
@@ -310,6 +319,87 @@ class RegAutoEncoderTask(TrainingTask):
     def _plot(self, epoch: int) -> None:
         self.plot_class.plot(self.colvar_model(), self.reg_model(),
                              epoch=epoch)
+
+    # ------------------------------------------------------------------
+    # replica sweeps
+    def _static_config(self):
+        return super()._static_config() + (
+            self.k, self.num_reg, self._gates(), self.lag_ae_idx,
+            self.lag_idx, self.traj_dt, self.freeze_encoder, self._gram,
+            self.precompute_features)
+
+    def _hyper(self):
+        return {"alpha": self._hyper_tensor(self.alpha),
+                "gamma": self._hyper_tensor(self.gamma),
+                "eta": self._hyper_tensor(self.eta),
+                "eig_weights": self._hyper_tensor(self._eig_w),
+                "beta": self._hyper_tensor(self._beta)}
+
+    def _frozen_prefix(self):
+        return "encoder." if self.freeze_encoder else None
+
+    def _replica_inputs(self, batch):
+        """``(Y, Y_ae, Y_l, M, w, w_l)``: the features of the batch, of
+        its frames lagged for the reconstruction and for the transfer
+        regularizer (None where unused), and the Gram matrices of the
+        generator regularizer (on its vjp path computed here, per step)."""
+        if self._gram:
+            H, H_ae, M, w = batch
+            return H, H_ae, None, M, w, None
+        X, X_ae, X_l, w, w_l = batch
+        ae_on, eig_on, eta_on = self._gates()
+        pp = self._pp_for_loss
+        with torch.no_grad():
+            M = None
+            if eig_on and self.lag_idx == 0:
+                Y, M = gram_batch(pp, X, self._diag_coeff,
+                                  self.model.encoder.layer_dims[0])
+            else:
+                Y = pp(X)
+            Y_ae = None if X_ae is None else pp(X_ae)
+            Y_l = None
+            if X_l is not None:
+                Y_l = Y_ae if X_l is X_ae else pp(X_l)
+        return Y, Y_ae, Y_l, M, w, w_l
+
+    def _replica_loss(self, model, hyper, Y, Y_ae, Y_l, M, w, w_l):
+        ae_on, eig_on, eta_on = self._gates()
+        k, ident = self.k, _IDENTITY
+        zero = w.new_zeros(())
+        ae = e0 = e1 = e2 = g0 = g1 = zero
+        if ae_on:
+            ae = weighted_mse_lagged_loss(model.forward_ae, ident, Y,
+                                          Y if Y_ae is None else Y_ae, w)
+        if eta_on[0]:
+            e0 = enc_grad_loss(model.encoder, ident, Y, w, k,
+                               jac=input_jacobian)
+        if eta_on[1]:
+            e1 = enc_norm_loss(model.encoder, ident, Y, w, k)
+        if eta_on[2]:
+            e2 = enc_orthogonality_loss(model.encoder, ident, Y, w, k)
+        if eig_on:
+            common = dict(num_reg=self.num_reg, eig_w=hyper["eig_weights"],
+                          beta=hyper["beta"], lag_idx=self.lag_idx,
+                          traj_dt=self.traj_dt, diag_coeff=None,
+                          jac=input_jacobian)
+            if M is not None:
+                out = reg_eigen_loss(model, None, Y, w, None, None,
+                                     pp_gram=M, **common)
+            else:
+                out = reg_eigen_loss(model, ident, Y, w, Y_l, w_l, **common)
+            eig_vals, g0, g1, cvec = out
+        else:
+            eig_vals = w.new_zeros(self.num_reg)
+            cvec = torch.arange(self.num_reg, device=w.device)
+        gamma, eta = hyper["gamma"], hyper["eta"]
+        loss = (hyper["alpha"] * ae + gamma[0] * g0 + gamma[1] * g1
+                + eta[0] * e0 + eta[1] * e1 + eta[2] * e2)
+        return loss, torch.cat([
+            torch.stack([loss, ae, g0, g1]).detach(),
+            eig_vals,
+            torch.stack([e0, e1, e2]).detach(),
+            cvec.to(loss.dtype),
+        ])
 
     def _batch_metrics(self, *batch):
         """Loss and the metric row [loss, ae, g0, g1, eig_vals, e0, e1, e2,

@@ -15,12 +15,21 @@ replay; the host fetches them once per chunk, where the JAX package does
 (``core/eigenfunction.py:942``). On the CPU the same epoch body runs
 eagerly.
 
+Each task also describes itself to the replica sweeps of
+:mod:`..parallel.ensemble` (the counterpart of the JAX ``_plan_for``,
+``colvarsfinder_tpu/parallel/ensemble.py:201-271``): what must be equal
+across replicas (:meth:`TrainingTask._static_config`), its sweepable
+hyperparameters as tensors (:meth:`TrainingTask._hyper`), the inputs of a
+batch that all replicas share (:meth:`TrainingTask._replica_inputs`) and
+the loss of one replica on them (:meth:`TrainingTask._replica_loss`).
+
 Not ported yet: streaming, the device mesh, ``shard_trajectory`` and the
-``unroll``/``prebatch`` switches (ROADMAP.md queue 1, items 13 and 15).
+``unroll``/``prebatch`` switches (ROADMAP.md queue 1, items 13 and 15b).
 """
 
 from __future__ import annotations
 
+import gc
 import math
 import os
 import time
@@ -32,13 +41,13 @@ import numpy as np
 import torch
 
 from .. import checkpoint
-from ..config import default_dtype, matmul_precision, resolve_device
+from ..config import default_dtype, numerics_key, resolve_device
 from ..export import export_colvar
 from ..logging_utils import MetricsWriter, profile_trace
 from ..ops import _cuda
 from ..ops.features import Identity
 
-__all__ = ["TrainingTask", "train_test_split"]
+__all__ = ["TrainingTask", "capture_epoch", "train_test_split"]
 
 
 def train_test_split(idx: np.ndarray, test_size: float, seed: int):
@@ -74,6 +83,43 @@ class CapturedEpoch(NamedTuple):
     launches: dict
     key: tuple
     held: list
+
+
+def capture_epoch(body, device, key_fn) -> CapturedEpoch:
+    """Run ``body()`` once eagerly on a side stream (a real epoch, which
+    also creates the optimizer's state, the cuBLAS handles and the kernel
+    libraries), then capture it as a CUDA graph on that stream with its
+    kernel launches counted; ``key_fn()`` gives the ``(key, held)`` of the
+    result after the eager epoch. A capture that fails raises: nothing
+    falls back to eager on the card.
+
+    Python's cyclic garbage collector is run before the capture and held
+    off during it: a graph that died in a reference cycle would otherwise
+    be destroyed whenever the collector runs, and destroying a graph
+    invalidates a capture in progress."""
+    current = torch.cuda.current_stream(device)
+    stream = torch.cuda.Stream(device)
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        body()
+    key, held = key_fn()
+    graph = torch.cuda.CUDAGraph()
+    gc.collect()
+    gc.disable()
+    try:
+        with _cuda.capture_launches() as launches, \
+                torch.cuda.graph(graph, stream=stream):
+            body()
+    except RuntimeError as err:
+        raise RuntimeError(
+            "capturing the training epoch as a CUDA graph failed (a host "
+            "sync or a call that capture forbids inside the step?): "
+            f"{err}"
+        ) from err
+    finally:
+        gc.enable()
+    current.wait_stream(stream)
+    return CapturedEpoch(graph, launches, key, held)
 
 
 class TrainingTask(ABC):
@@ -361,7 +407,8 @@ class TrainingTask(ABC):
         key ``(length, numerics_key(), lr) + static`` is
         (``colvarsfinder_tpu/core/eigenfunction.py:197``). Values compare
         by value: the optimizer's hyperparameters (lr among them), the
-        matmul precision, the default dtype and the task's own
+        numerics (:func:`..config.numerics_key`: matmul precision, default
+        dtype, compute dtype, bfloat16 style) and the task's own
         (:meth:`_graph_static`). Objects compare by identity: the prepared
         data, the optimizer, its parameters and state tensors and the
         task's own; ``held`` holds them for the graph."""
@@ -373,8 +420,7 @@ class TrainingTask(ABC):
                  if torch.is_tensor(t)]
         hyper = tuple((k, repr(v)) for g in opt.param_groups
                       for k, v in sorted(g.items()) if k != "params")
-        key = (hyper, matmul_precision(), default_dtype(), *values,
-               tuple(map(id, held)))
+        key = (hyper, numerics_key(), *values, tuple(map(id, held)))
         return key, held
 
     def _drop_graph(self) -> None:
@@ -401,28 +447,7 @@ class TrainingTask(ABC):
         elif self._graph is not None:
             _cuda.replay(self._graph.graph, self._graph.launches)
         else:
-            self._graph = self._eager_then_capture(body)
-
-    def _eager_then_capture(self, body) -> CapturedEpoch:
-        current = torch.cuda.current_stream(self.device)
-        stream = torch.cuda.Stream(self.device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            body()
-        key, held = self._graph_key()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with _cuda.capture_launches() as launches, \
-                    torch.cuda.graph(graph, stream=stream):
-                body()
-        except RuntimeError as err:
-            raise RuntimeError(
-                "capturing the training epoch as a CUDA graph failed (a host "
-                "sync or a call that capture forbids inside the step?): "
-                f"{err}"
-            ) from err
-        current.wait_stream(stream)
-        return CapturedEpoch(graph, launches, key, held)
+            self._graph = capture_epoch(body, self.device, self._graph_key)
 
     def release_device_data(self) -> None:
         """Drop the prepared device batches and the captured epoch with its
@@ -539,6 +564,47 @@ class TrainingTask(ABC):
         with torch.no_grad():
             ms += [self._batch_metrics(*batch)[1] for batch in test_data]
         torch.stack(ms, out=rows)
+
+    # ------------------------------------------------------------------
+    # what the replica sweeps need (parallel/ensemble.py)
+    #: hyperparameter name -> its on/off gate, which a sweep may not
+    #: toggle (the RegAE's term gates)
+    _GATES: dict = {}
+
+    def _static_config(self) -> tuple:
+        """What must be equal across the replicas of one sweep or ensemble
+        (valid after :meth:`_prepare_data`); tasks extend it."""
+        return (type(self).__name__, self.optimizer_name.lower(),
+                tuple(self.traj_obj.trajectory.shape[1:]))
+
+    def _hyper(self) -> dict:
+        """The sweepable hyperparameters, name -> tensor of the default
+        dtype on the device, in the JAX order (``_EIG_HYPER_IX`` etc.,
+        ``colvarsfinder_tpu/parallel/ensemble.py:490-494``)."""
+        return {}
+
+    def _hyper_tensor(self, value) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(value, dtype=np.float64),
+                               dtype=default_dtype(), device=self.device)
+
+    def _replica_inputs(self, batch) -> tuple:
+        """The tensors of one prepared batch that every replica reads,
+        computed once per batch outside the replica map; nothing
+        differentiates through them. Tasks override it."""
+        return tuple(batch)
+
+    @abstractmethod
+    def _replica_loss(self, model, hyper: dict, *inputs):
+        """``(loss, row)`` of one replica on :meth:`_replica_inputs`: the
+        functional counterpart of :meth:`_batch_metrics`, with ``model``
+        the replica's module (its parameters bound by
+        ``torch.func.functional_call``) and ``hyper`` its
+        :meth:`_hyper` values."""
+
+    def _frozen_prefix(self):
+        """The parameter-name prefix whose gradients each replica step
+        zeroes (:meth:`_before_step`'s counterpart), or None."""
+        return None
 
     def train(self):
         """Train the model; fills :attr:`train_loss` / :attr:`test_loss`

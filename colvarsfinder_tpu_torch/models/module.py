@@ -6,6 +6,11 @@ Conventions are those of the JAX package, which in turn follows
 weight and bias start as U(-1/sqrt(d_in), 1/sqrt(d_in)). Stacked (ensemble)
 parameters carry a leading head axis: weight ``[k, d_out, d_in]``, bias
 ``[k, d_out]``.
+
+Under ``config.set_compute_dtype('bfloat16')`` both appliers run in mixed
+precision, as the JAX package's do (``colvarsfinder_tpu/models/module.py:
+134-175, 207-260``): the parameters stay float32 and the activations are
+stored in bfloat16, in the arithmetic style of ``config.set_bf16_style``.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..config import default_dtype
+from ..config import bf16_style, compute_dtype, default_dtype
 
 __all__ = [
     "ACTIVATIONS",
@@ -111,17 +116,60 @@ def mlp_init(
     )
 
 
+def _mixed_style(x: torch.Tensor):
+    """The bfloat16 style a float32 input runs in, or None for full
+    precision (the float32 compute dtype, or another input dtype)."""
+    if compute_dtype() == torch.bfloat16 and x.dtype == torch.float32:
+        return bf16_style()
+    return None
+
+
+def _mixed_operands(h, W, b, style: str):
+    """A layer's operands in bfloat16 style ``style``; ``h`` is the stored
+    bfloat16 activation.
+
+    - 'pure': bfloat16 operands, so the product has a bfloat16 result: on
+      the card cuBLAS's bf16 GEMM (bf16 in and out, float32 accumulation
+      inside the GEMM, one rounding of the result), the bias added in
+      bfloat16.
+    - 'acc32': the weights rounded to bfloat16 and both operands upcast
+      exactly to float32; a product of two bfloat16 values is exact in
+      float32, so the float32 GEMM computes the bf16 x bf16 -> f32 product
+      with float32 accumulation and result (on the card cuBLAS's SGEMM, or
+      its TF32 tensor-core path under matmul precision 'high', which holds
+      bfloat16 operands exactly). PyTorch's ``out_dtype`` product, the
+      direct bf16 x bf16 -> f32 call, has no autograd formula and no CPU
+      kernel. Bias and activation stay float32.
+    - 'w32': float32 weights, the activation upcast exactly; float32
+      arithmetic at the configured matmul precision.
+    """
+    if style == "pure":
+        return h, W.to(torch.bfloat16), b.to(torch.bfloat16)
+    if style == "acc32":
+        W = W.to(torch.bfloat16).to(W.dtype)
+    return h.to(W.dtype), W, b
+
+
 def mlp_apply(params: Sequence[dict], x: torch.Tensor,
               activation: str) -> torch.Tensor:
-    """Apply an MLP: the activation between layers, none after the last."""
+    """Apply an MLP: the activation between layers, none after the last.
+    A float32 input under the bfloat16 compute dtype runs in mixed
+    precision (``colvarsfinder_tpu/models/module.py:134-175``) and its
+    output is cast back to float32."""
     act = ACTIVATIONS[activation]
-    h = x
+    style = _mixed_style(x)
+    h = x if style is None else x.to(torch.bfloat16)
     n = len(params)
     for i, layer in enumerate(params):
-        h = torch.nn.functional.linear(h, layer["weight"], layer["bias"])
+        W, b = layer["weight"], layer["bias"]
+        if style is not None:
+            h, W, b = _mixed_operands(h, W, b, style)
+        h = torch.nn.functional.linear(h, W, b)
         if i < n - 1:
             h = act(h)
-    return h
+            if style not in (None, "pure"):
+                h = h.to(torch.bfloat16)  # the stored activation
+    return h if style is None else h.to(x.dtype)
 
 
 def stacked_mlp_init(
@@ -161,15 +209,23 @@ def stacked_mlp_apply(
     squeeze = x.dim() == 1
     if squeeze:
         x = x[None]
+    style = _mixed_style(x)
     k = weights[0].shape[0]
-    h = x.unsqueeze(0).expand(k, *x.shape)
+    h = x if style is None else x.to(torch.bfloat16)
+    h = h.unsqueeze(0).expand(k, *x.shape)
     n = len(weights)
     for i, (W, b) in enumerate(zip(weights, biases)):
+        if style is not None:
+            h, W, b = _mixed_operands(h, W, b, style)
         # [k, b, i] x [k, i, o] -> [k, b, o]: one batched product per layer
         h = torch.baddbmm(b[:, None, :], h, W.transpose(1, 2))
         if i < n - 1:
             h = act(h)
+            if style not in (None, "pure"):
+                h = h.to(torch.bfloat16)  # the stored activation
     h = h.transpose(0, 1).reshape(x.shape[0], -1)
+    if style is not None:
+        h = h.to(x.dtype)
     return h[0] if squeeze else h
 
 

@@ -1,8 +1,11 @@
 """PyTorch port on the card: CUDA kernels K1-K4 against their plain PyTorch
 versions, K1's and K2's backward differentiated twice, training epochs
 (transfer operator, generator, committor, the autoencoders) captured as CUDA
-graphs against the same epochs run eagerly, and the exported CV programs
-running K1 and K2 against the live CV. Every test here needs an NVIDIA card and ``nvcc``: it
+graphs against the same epochs run eagerly, the exported CV programs
+running K1 and K2 against the live CV, and replica sweeps (a captured sweep
+epoch against the eager one, K2 per sweep epoch independent of the replica
+count, the bf16 Gram form's vmap rule, bf16 sweeps keeping float32
+parameters). Every test here needs an NVIDIA card and ``nvcc``: it
 carries the ``cuda`` marker and skips where ``torch.cuda.is_available()`` is
 false. This file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch (``-s`` shows the graph-against-eager gaps):
@@ -926,3 +929,161 @@ def test_exported_cv_programs_run_their_kernel(dev, tmp_path, kind):
     print(f"{kind}: program Jacobian vs live autograd: {err:.3e} of "
           f"{scale:.3e}")
     assert err <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# replica sweeps (parallel/ensemble.py)
+def _sweep_task(tmp_path, kind, epochs=3):
+    rng = np.random.default_rng(11)
+    ref = rng.standard_normal((6, 3)).astype(np.float32)
+    x = (ref[None] + 0.3 * rng.standard_normal((1200, 6, 3))).astype(
+        np.float32)
+    pp = PreprocessingANN(FusedAlignmentLayer(ref, list(range(6))),
+                          FeatureLayer([Feature("p", "position",
+                                                list(range(6)))]))
+    if kind == "regae":
+        return RegAutoEncoderTask(
+            WeightedTrajectory(trajectory=x, dt=0.01, verbose=False), pp,
+            RegAutoEncoder([18, 10, 2], [2, 10, 18], [2, 8, 1], K=2, seed=0),
+            str(tmp_path), eig_weights=[1.0, 0.5], alpha=1.0,
+            gamma=[0.5, 1.0], eta=[0.05, 0.1, 0.2], lag_tau_ae=0.02,
+            lag_tau_reg=0.02, learning_rate=0.005, batch_size=200,
+            num_epochs=epochs, test_ratio=0.2, verbose=False,
+            tensorboard=False, save_model_every_step=0)
+    return EigenFunctionTask(
+        WeightedTrajectory(trajectory=x, dt=0.01, verbose=False), pp,
+        EigenFunctions([18, 10, 1], 2, seed=0), str(tmp_path), alpha=10.0,
+        eig_weights=[1.0, 0.5], lag_tau=0.02 if kind == "transfer" else 0.0,
+        k=2, learning_rate=0.005, batch_size=200, num_epochs=epochs,
+        test_ratio=0.2, verbose=False, tensorboard=False,
+        save_model_every_step=0, gram_pp=None if kind == "transfer" else True)
+
+
+def _grid(R, kind="transfer"):
+    grid = {"learning_rate": [0.002 * (r + 1) for r in range(R)]}
+    if kind == "regae":
+        grid["gamma"] = [[0.5 * (r + 1), 1.0] for r in range(R)]
+    else:
+        grid["alpha"] = [5.0 * (r + 1) for r in range(R)]
+    return grid
+
+
+@pytest.mark.parametrize("kind", ["transfer", "gen_gram", "regae"])
+def test_captured_sweep_equals_eager_sweep(dev, tmp_path, kind):
+    from colvarsfinder_tpu_torch.parallel import (
+        ensemble,
+        train_hyperparameter_sweep,
+    )
+
+    task = _sweep_task(tmp_path, kind)
+    grid = _grid(4, kind)
+    ensemble.release_sweeps()
+    cap = train_hyperparameter_sweep(task, grid)
+    reps = next(reversed(ensemble._SWEEPS.values()))
+    assert reps.graph is not None
+    again = train_hyperparameter_sweep(task, grid)  # replays only
+    eager = train_hyperparameter_sweep(task, grid, _eager=True)
+    for a, b, c in zip(cap, again, eager):
+        for x, y in ((a, b), (a, c)):
+            assert np.array_equal(x.train_loss, y.train_loss)
+            assert np.array_equal(x.test_loss, y.test_loss)
+            assert all(torch.equal(x.model[n], y.model[n]) for n in x.model)
+    ensemble.release_sweeps()
+
+
+def test_k2_launches_per_sweep_epoch_do_not_depend_on_r(dev, tmp_path):
+    from colvarsfinder_tpu_torch.parallel import (
+        ensemble,
+        train_hyperparameter_sweep,
+    )
+
+    task = _sweep_task(tmp_path, "transfer")
+    nb = sum(len(b) for b in task._prepare_data()[:2])
+    per_epoch = []
+    for R in (2, 8):
+        ensemble.release_sweeps()
+        _cuda.reset_launch_counts()
+        train_hyperparameter_sweep(task, _grid(R))
+        reps = next(reversed(ensemble._SWEEPS.values()))
+        per_epoch.append(reps.graph.launches["fused_align"])
+        assert _cuda.launch_counts()["fused_align"] == 2 * nb * 3
+    assert per_epoch == [2 * nb, 2 * nb]
+    ensemble.release_sweeps()
+
+
+def test_bf16_sweep_keeps_float32_parameters(dev, tmp_path):
+    from colvarsfinder_tpu_torch import config
+    from colvarsfinder_tpu_torch.parallel import (
+        ensemble,
+        train_hyperparameter_sweep,
+    )
+
+    task = _sweep_task(tmp_path, "transfer")
+    ensemble.release_sweeps()
+    r32 = train_hyperparameter_sweep(task, _grid(2))
+    r16 = train_hyperparameter_sweep(task, _grid(2), compute_dtype="bfloat16")
+    assert config.compute_dtype_name() == "float32"
+    reps = next(reversed(ensemble._SWEEPS.values()))
+    assert all(p.dtype == torch.float32 for p in reps.params)
+    assert all(p.grad.dtype == torch.float32 for p in reps.params)
+    assert all(t.dtype == torch.float32 for t in reps.opt.state_tensors())
+    for a, b in zip(r32, r16):
+        assert all(v.dtype == torch.float32 for v in b.model.values())
+        np.testing.assert_allclose(b.train_loss[:, 0], a.train_loss[:, 0],
+                                   rtol=0.1, atol=0.05)
+        assert not np.array_equal(a.train_loss, b.train_loss)
+    ensemble.release_sweeps()
+
+
+def test_bf16_gram_form_vmap_rule_on_the_card(dev):
+    """The bf16 Gram form under vmap (replicas folded into the heads, M
+    shared; or into the samples, M per replica) equals one call per
+    replica, values and gradient."""
+    from colvarsfinder_tpu_torch.core.losses import _Bf16QuadraticForm
+
+    rng = np.random.default_rng(4)
+    R, k, B, d = 3, 2, 300, 30
+    G = torch.tensor(rng.standard_normal((R, k, B, d)), dtype=torch.float32,
+                     device=dev, requires_grad=True)
+    M = torch.tensor(rng.standard_normal((R, B, d, d)),
+                     device=dev).to(torch.bfloat16)
+    apply = _Bf16QuadraticForm.apply
+    for m_dim, Ms in ((None, M[0]), (0, M)):
+        out = torch.func.vmap(lambda g, m: apply(g, m)[0],
+                              in_dims=(0, m_dim))(G, Ms)
+        want = torch.stack([apply(G[r], Ms if m_dim is None else Ms[r])[0]
+                            for r in range(R)])
+        torch.testing.assert_close(out, want, rtol=1e-5, atol=1e-4)
+        gv, = torch.autograd.grad(out.sum(), G)
+        gw, = torch.autograd.grad(want.sum(), G)
+        torch.testing.assert_close(gv, gw, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_replica_adam_equals_capturable_torch_adam(dev, dtype):
+    """The replica-stacked Adam on the card against one capturable
+    torch.optim.Adam per replica (the solo task's optimizer there), over
+    ten steps of seeded gradients: bit for bit."""
+    from colvarsfinder_tpu_torch.parallel.ensemble import _ReplicaOptimizer
+
+    rng = np.random.default_rng(0)
+    R, lrs = 3, [1e-3, 1e-2, 2e-2]
+    p0 = torch.tensor(rng.standard_normal((R, 4, 5)), dtype=dtype,
+                      device=dev)
+    stacked = p0.clone().requires_grad_()
+    opt = _ReplicaOptimizer("adam", [stacked],
+                            torch.tensor(lrs, dtype=torch.float64,
+                                         device=dev))
+    solo = [p0[r].clone().requires_grad_() for r in range(R)]
+    torch_opts = [torch.optim.Adam([solo[r]], lr=lrs[r], capturable=True)
+                  for r in range(R)]
+    for s in range(10):
+        g = torch.tensor(rng.standard_normal((R, 4, 5)) * 10.0 ** -(s % 4),
+                         dtype=dtype, device=dev)
+        stacked.grad = g.clone()
+        opt.step()
+        for r in range(R):
+            solo[r].grad = g[r].clone()
+            torch_opts[r].step()
+    for r in range(R):
+        assert torch.equal(stacked[r].detach(), solo[r].detach()), r
