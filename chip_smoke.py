@@ -98,7 +98,21 @@ Phases (each raises on failure; nothing is caught):
    bf16 bar); an R = 8 sweep captured against eager, bit for bit, with K2
    per captured epoch equal to R = 64's; R = 4 sweeps of the generator
    (Gram), the committor, the AE and the RegAE (transfer) through K2, each
-   replica against its solo run the same way.
+   replica against its solo run the same way;
+10. streaming from host memory (``streaming=True``): the fused and the plain
+   run streamed from phase 4's frames in RAM against phase 4's resident
+   runs, and the fused run against its eager twin, bit for bit, with the
+   resident launch schedule; bench.py's streaming workload (bench.py:
+   308-350), a 4 GiB float32 memmap made as benchmarks/streaming_bench.py:
+   40-68 makes it, batch 20,000, lag 5, test_ratio 1e-4, through (a) the
+   plain step and (b) the fused step (K2, K3, K4): one warm call, then
+   timed calls (one for (a), whose epoch takes seconds); samples/s beside
+   phase 5's resident rates; per batch the gather's host ms, the copy's
+   device ms and GB/s, the step's device ms, the calling thread's ms, the
+   device busy share and the stage that sets the pace; peak device memory
+   of (b) within 10% of the same run on the memmap's first 120,000 frames;
+   pinned host memory; (b) with one and eight gather threads, prefetch 0
+   and a float16 wire. The memmap is deleted at the end of the phase.
 
 The second-to-last line lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -107,6 +121,7 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -224,6 +239,19 @@ SWEEP_BF16_RANK, SWEEP_BF16_SHARE = 0.9, 0.9
 # float32 versions part further gets 100 x that gap x 2**-29)
 SWEEP_F64_RTOL = 1e-8
 FAMILY_R, FAMILY_EPOCHS = 4, 3
+
+# phase 10: bench.py's streaming workload (bench.py:308-350): the
+# main path's task with streaming=True on a 4 GiB float32 memmap of [n, 10,
+# 3] frames made as benchmarks/streaming_bench.py:40-68 makes it (seed 0),
+# batch 20,000, lag 5, test_ratio 1e-4; the streamed run's peak device
+# memory there within 10% of the same run on the memmap's first N_FRAMES
+# frames
+STREAM_GIB, STREAM_TEST_RATIO, STREAM_MEMORY_RTOL = 4.0, 1e-4, 0.10
+# the fused run's settings tried besides the defaults (one call each)
+STREAM_VARIANTS = (("1 gather thread", dict(stream_transfer_workers=1)),
+                   ("8 gather threads", dict(stream_transfer_workers=8)),
+                   ("prefetch 0", dict(stream_prefetch=0)),
+                   ("float16 wire", dict(stream_wire_dtype="float16")))
 
 KERNELS = {
     "kabsch_qcp": ("colvarsfinder_tpu_torch/csrc/kabsch.cu",
@@ -589,7 +617,7 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
 
 def make_task(cvf, traj_obj, ref, path, fused, method, epochs,
               save_every=0, align_weights=None, model_seed=0, lr=LR,
-              alpha=ALPHA):
+              alpha=ALPHA, test_ratio=TEST_RATIO, **kw):
     if method == "fused":
         align = cvf.FusedAlignmentLayer(ref, list(range(N_ATOMS)))
     else:
@@ -604,9 +632,9 @@ def make_task(cvf, traj_obj, ref, path, fused, method, epochs,
         traj_obj, pp, cvf.EigenFunctions(list(DIMS), K, seed=model_seed),
         path, alpha=alpha, eig_weights=EIG_W, lag_tau=LAG * DT,
         learning_rate=lr, save_model_every_step=save_every, k=K,
-        batch_size=BATCH, num_epochs=epochs, test_ratio=TEST_RATIO,
+        batch_size=BATCH, num_epochs=epochs, test_ratio=test_ratio,
         verbose=False, tensorboard=False, seed=0, debug_mode=False,
-        fused_step=fused, progress_interval=1,
+        fused_step=fused, progress_interval=1, **kw,
     )
 
 
@@ -654,8 +682,13 @@ def phase_training(ref, traj_np, w_np, cvf):
             steady = statistics.median(task.epoch_times[2:] or
                                        task.epoch_times)
             sps = nb_train * BATCH / steady
+            # every batch's metric row and the final parameters, which
+            # phase 10's streamed runs must equal
             runs[label] = dict(task=task, counts=counts, wall=wall,
-                               sps=sps, epochs=epochs)
+                               sps=sps, epochs=epochs,
+                               rows=loss_rows(task),
+                               params=[p.detach().clone()
+                                       for p in task.model.parameters()])
             if (task._graph is None) != (label == "fused eager"):
                 raise AssertionError(f"{label}: captured graph "
                                      f"{task._graph is not None}")
@@ -714,6 +747,11 @@ def phase_training(ref, traj_np, w_np, cvf):
     if out.shape != (1000, K) or not torch.isfinite(out).all():
         raise AssertionError(f"CV model output {tuple(out.shape)} not finite")
     return runs
+
+
+def loss_rows(task):
+    """Every batch's metric row of every epoch, train then test."""
+    return np.stack([np.concatenate(epoch) for epoch in task.loss_list])
 
 
 def check_scripted_cv(task, latest, traj_np, frames=100, label="plain"):
@@ -1983,6 +2021,261 @@ def family_sweeps(card, ref, traj_np, traj_obj, cvf, tmp):
     return out
 
 
+def make_stream_memmap(path, gib, seed=0):
+    """The dipeptide-shaped float32 memmap of benchmarks/streaming_bench.py:
+    40-68 (its make_memmap_traj, copied: this script imports nothing of the
+    JAX package's tree): a 1M-frame block of a perturbed reference, tiled
+    with a scale per block, ~``gib`` GiB; returned opened read-only."""
+    n = int(gib * (1 << 30) / (N_ATOMS * 3 * 4))
+    mm = np.memmap(path, dtype=np.float32, mode="w+", shape=(n, N_ATOMS, 3))
+    rng = np.random.default_rng(seed)
+    ref = rng.standard_normal((N_ATOMS, 3)).astype(np.float32)
+    block = (ref[None] + 0.3 * rng.standard_normal((1_000_000, N_ATOMS, 3))
+             ).astype(np.float32)
+    for c, s in enumerate(range(0, n, len(block))):
+        e = min(s + len(block), n)
+        mm[s:e] = block[:e - s] * np.float32(1.0 + 0.02 * (c % 7))
+    mm.flush()
+    del mm
+    return np.memmap(path, dtype=np.float32, mode="r", shape=(n, N_ATOMS, 3))
+
+
+def stage_times(st, workers):
+    """Per batch, from a train() call with stream_timing: the gather's host
+    ms on its thread, and over the gather threads; the copy's device ms and
+    GB/s; the step's device ms (its slot's arrival to its metric row); the
+    calling thread's ms, and of it the ms issuing the copies and the ms in
+    the steps (the graph replay and the metric row's copy); the share of the
+    wall time the card spent in steps and the share the calling thread
+    waited for gathers; the stage that sets the pace (the largest per-batch
+    time)."""
+    n = st["gather_s"].size
+    gather_ms = float(np.median(st["gather_s"])) * 1e3
+    h2d_ms = float(np.median(st["h2d_ms"]))
+    wall_ms = st["wall_s"] * 1e3
+    host_ms = (wall_ms - 1e3 * (st["wait_gather_s"] + st["wait_host_s"])) / n
+    row = {
+        "batches": n,
+        "gather_ms": gather_ms,
+        "gather_ms_over_threads": gather_ms / max(1, workers),
+        "h2d_ms": h2d_ms,
+        "h2d_gb_per_s": float(np.median(st["h2d_bytes"])) / h2d_ms * 1e-6,
+        "h2d_mb_per_batch": float(np.median(st["h2d_bytes"])) / 1e6,
+        "step_ms": float(np.median(st["step_ms"])),
+        "host_ms": host_ms,
+        "host_copy_ms": st["copy_s"] * 1e3 / n,
+        "host_step_ms": st["step_s"] * 1e3 / n,
+        "wall_ms_per_batch": wall_ms / n,
+        "device_busy_share": float(st["step_ms"].sum()) / wall_ms,
+        "wait_gather_share": st["wait_gather_s"] * 1e3 / wall_ms,
+        "pinned_host_mb": st["host_bytes"] / 1e6,
+    }
+    stages = {"gather": row["gather_ms_over_threads"], "copy": h2d_ms,
+              "step": row["step_ms"], "calling thread": host_ms}
+    row["pace"] = max(stages, key=stages.get)
+    return row
+
+
+def phase_streaming(card, ref, traj_np, w_np, cvf, runs):
+    """Phase 10: the streaming layout. The fused and plain streamed runs
+    on phase 4's frames against phase 4's resident runs, and the fused
+    captured run against its eager twin, bit for bit; bench.py's 4 GiB
+    memmap through (a) the plain step and (b) the fused step: samples/s
+    beside phase 5's resident rates, the time of each stage, peak device
+    memory against the same run on 120,000 frames, pinned host memory."""
+    from colvarsfinder_tpu_torch.ops import _cuda
+    from colvarsfinder_tpu_torch.parallel import ensemble
+
+    t_phase = time.perf_counter()
+    # the earlier phases' device data goes, so that peak memory reads this
+    # phase's runs
+    for r in runs.values():
+        r["task"].release_device_data()
+    ensemble.release_sweeps()
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = dict.fromkeys(_cuda.LAUNCHES, 0)
+
+    def train(task, label):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        task.train()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _cuda.launch_counts()
+        for name, n in counts.items():
+            launches[name] += n
+        if not np.isfinite(task.train_loss).all():
+            raise AssertionError(f"{label}: non-finite training metrics")
+        peak = torch.cuda.max_memory_allocated()
+        return dict(wall=wall, counts=counts, peak=peak,
+                    peak_increment=peak - before)
+
+    traj_obj = cvf.WeightedTrajectory(trajectory=traj_np, weights=w_np,
+                                      dt=DT, verbose=False)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # bit for bit against phase 4's resident runs (in-RAM frames keep
+        # the resident gather order)
+        for label, fused, method, eager in (
+            ("fused", True, "fused", False),
+            ("fused eager", True, "fused", True),
+            ("plain", False, "quaternion", False),
+        ):
+            task = make_task(cvf, traj_obj, ref, f"{tmp}/{label}", fused,
+                             method, EPOCHS, streaming=True)
+            task._eager_on_card = eager
+            r = train(task, f"streamed {label}")
+            resident = runs["plain" if method == "quaternion" else "fused"]
+            rows = loss_rows(task)
+            same = np.array_equal(rows, resident["rows"]) and all(
+                torch.equal(a, b) for a, b in zip(task.model.parameters(),
+                                                  resident["params"]))
+            graphs = sorted(task._stream_graphs)
+            log(f"  streamed {label:11s} ({EPOCHS} epochs of phase 4's "
+                f"frames, {r['wall']:.2f} s, step graphs {graphs}): every "
+                f"batch's metric row and every final parameter bit for bit "
+                f"equal to phase 4's resident {resident['task'].model_name} "
+                f"run ({'fused' if fused else 'plain'}): {same}; launches "
+                f"{r['counts']}")
+            if not same:
+                gap = float(np.max(np.abs(rows - resident["rows"])))
+                raise AssertionError(f"streamed {label} differs from the "
+                                     f"resident run (max gap {gap:.3e})")
+            if r["counts"] != resident["counts"]:
+                raise AssertionError(f"streamed {label}: launches "
+                                     f"{r['counts']}, resident "
+                                     f"{resident['counts']}")
+            if graphs != ([] if eager else ["test", "train"]):
+                raise AssertionError(f"streamed {label}: graphs {graphs}")
+
+        path = os.path.join(tempfile.gettempdir(),
+                            f"cvf_stream_{STREAM_GIB:g}gib_{os.getpid()}.f32")
+        try:
+            t0 = time.perf_counter()
+            mm = make_stream_memmap(path, STREAM_GIB)
+            log(f"  memmap: {mm.shape[0]:,} frames of [{N_ATOMS}, 3] float32 "
+                f"({mm.nbytes / 2**30:.2f} GiB) written in "
+                f"{time.perf_counter() - t0:.1f} s at {path}")
+            big = cvf.WeightedTrajectory(trajectory=mm, dt=DT, verbose=False)
+            small = cvf.WeightedTrajectory(trajectory=mm[:N_FRAMES], dt=DT,
+                                           verbose=False)
+            if not (isinstance(big.trajectory, np.memmap)
+                    and isinstance(small.trajectory, np.memmap)):
+                raise AssertionError("the trajectory left the memmap")
+
+            def stream_task(traj, label, fused):
+                task = make_task(cvf, traj, ref, f"{tmp}/{label}", fused,
+                                 "fused" if fused else "quaternion", 1,
+                                 streaming=True,
+                                 test_ratio=STREAM_TEST_RATIO)
+                if not task._sorted_gather(task._traj_np):
+                    raise AssertionError(f"{label}: unsorted memmap gather")
+                return task
+
+            small_r = train(stream_task(small, "b small", True), "b 120k")
+            for label, fused, resident in (("b", True, "fused"),
+                                           ("a", False, "plain")):
+                task = stream_task(big, label, fused)
+                nb_train = len(task._prepare_data()[2])
+                samples = nb_train * BATCH
+                warm = train(task, f"{label} warm")
+                timed = []
+                for timing in ((False, True) if fused else (True,)):
+                    task.stream_timing = timing
+                    r = train(task, label)
+                    r["sps"] = samples / task.epoch_times[-1]
+                    timed.append(r)
+                st = stage_times(task.stream_stats, task._stream_config()[1])
+                row = dict(
+                    samples_per_s=max(r["sps"] for r in timed),
+                    samples_per_s_each_call=[r["sps"] for r in timed],
+                    resident_samples_per_s=runs[resident]["sps"],
+                    warm_call_s=warm["wall"], peak_gib=warm["peak"] / 2**30,
+                    peak_increment_mb=warm["peak_increment"] / 1e6,
+                    frames=mm.shape[0], nb_train=nb_train, stages=st,
+                    launches_per_call=timed[0]["counts"])
+                row["vs_resident"] = (row["samples_per_s"]
+                                      / row["resident_samples_per_s"])
+                calls = ", ".join(f"{r['sps']:,.0f}" for r in timed)
+                log(f"  ({label}) {'fused' if fused else 'plain'} step, "
+                    f"{mm.shape[0]:,} frames, {nb_train} train batches: "
+                    f"{row['samples_per_s']:,.0f} samples/s streamed "
+                    f"(calls after the warm one: {calls}; the last with "
+                    f"stage timing) on {card}; phase 5's "
+                    f"resident {row['resident_samples_per_s']:,.0f} "
+                    f"({100 * row['vs_resident']:.1f}%); warm call "
+                    f"{warm['wall']:.1f} s; launches per call "
+                    f"{timed[0]['counts']}")
+                log(f"      per batch: gather {st['gather_ms']:.3f} ms on "
+                    f"its thread ({st['gather_ms_over_threads']:.3f} over "
+                    f"the threads), copy {st['h2d_ms']:.3f} ms "
+                    f"({st['h2d_mb_per_batch']:.2f} MB, "
+                    f"{st['h2d_gb_per_s']:.1f} GB/s), step "
+                    f"{st['step_ms']:.3f} ms on the card, calling thread "
+                    f"{st['host_ms']:.3f} ms (copies {st['host_copy_ms']:.3f}"
+                    f", steps {st['host_step_ms']:.3f}), wall "
+                    f"{st['wall_ms_per_batch']:.3f} ms; device busy "
+                    f"{100 * st['device_busy_share']:.1f}%, calling thread "
+                    f"waiting for gathers {100 * st['wait_gather_share']:.1f}"
+                    f"%; pace set by: {st['pace']}; pinned host "
+                    f"{st['pinned_host_mb']:.1f} MB")
+                if fused:
+                    log(f"      peak device memory {warm['peak'] / 2**20:.1f}"
+                        f" MiB ({warm['peak_increment'] / 2**20:.1f} MiB over "
+                        f"the call's start); the same run on the memmap's "
+                        f"first {N_FRAMES:,} frames "
+                        f"{small_r['peak'] / 2**20:.1f} MiB "
+                        f"({small_r['peak_increment'] / 2**20:.1f} MiB) "
+                        f"(tolerance {STREAM_MEMORY_RTOL:.0%})")
+                    if (abs(warm["peak"] - small_r["peak"])
+                            > STREAM_MEMORY_RTOL * small_r["peak"]):
+                        raise AssertionError(
+                            "streamed peak device memory grew with the "
+                            f"trajectory: {warm['peak']} vs {small_r['peak']}")
+                    row["peak_small_gib"] = small_r["peak"] / 2**30
+                    row["peak_increment_small_mb"] = \
+                        small_r["peak_increment"] / 1e6
+                    variants = {}
+                    for name, attrs in STREAM_VARIANTS:
+                        for k, v in attrs.items():
+                            setattr(task, k, v)
+                        # a changed setting rebuilds the buffers: this call
+                        # captures its two steps again
+                        train(task, f"{label} {name}")
+                        vst = stage_times(task.stream_stats,
+                                          task._stream_config()[1])
+                        variants[name] = dict(
+                            samples_per_s=samples / task.epoch_times[-1],
+                            stages=vst)
+                        for k in attrs:
+                            delattr(task, k)
+                        log(f"      {name}: "
+                            f"{variants[name]['samples_per_s']:,.0f} "
+                            "samples/s (one call with stage timing, its "
+                            f"steps captured anew): gather "
+                            f"{vst['gather_ms']:.3f} ms per batch on its "
+                            f"thread, calling thread {vst['host_ms']:.3f} ms "
+                            f"(copies {vst['host_copy_ms']:.3f}, steps "
+                            f"{vst['host_step_ms']:.3f}), waiting for gathers "
+                            f"{100 * vst['wait_gather_share']:.1f}%, step "
+                            f"{vst['step_ms']:.3f} ms on the card; pace: "
+                            f"{vst['pace']}")
+                    row["variants_samples_per_s"] = variants
+                out[label] = row
+                del task
+        finally:
+            if os.path.exists(path):
+                os.remove(path)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 10 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2025,13 +2318,21 @@ def main():
     export = phase_export(card, runs, traj_np, cvf)
     log("phase 9: the replica sweep")
     sweep = phase_sweep(card, ref, traj_np, w_np, cvf, runs)
+    log("phase 10: streaming from host memory")
+    streaming = phase_streaming(card, ref, traj_np, w_np, cvf, runs)
     launches = {"kabsch_qcp": runs["k1"]["counts"]["kabsch_qcp"]}
     for name in ("fused_align", "stats_fwd", "stats_bwd"):
         launches[name] = runs["fused"]["counts"][name]
     # K2 on the main path and on the sweep's (run b's second call)
     launches["fused_align"] += sweep["b fused f32"]["k2_launches"]
+    # and every streamed call of phase 10
+    for name, n in streaming["launches"].items():
+        launches[name] += n
     log(f"K2 launches: main path {runs['fused']['counts']['fused_align']}, "
-        f"sweep {sweep['b fused f32']['k2_launches']}")
+        f"sweep {sweep['b fused f32']['k2_launches']}, streamed "
+        f"{streaming['launches']['fused_align']}; K3 streamed "
+        f"{streaming['launches']['stats_fwd']}, K4 streamed "
+        f"{streaming['launches']['stats_bwd']}")
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kern[name]
@@ -2052,6 +2353,7 @@ def main():
         "autoencoders": autoencoders,
         "export": export,
         "sweep": sweep,
+        "streaming": streaming,
     }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

@@ -9,8 +9,14 @@ epoch is one call of :meth:`.task.TrainingTask._epoch_body`, captured as a
 CUDA graph on the card, as in :class:`.eigenfunction.EigenFunctionTask`.
 In a replica sweep the features are those computed at construction (one
 K2 launch through ``FusedAlignmentLayer``), shared by every replica; the
-learning rate is the only sweepable hyperparameter. The JAX package's
-streaming layout is not ported (ROADMAP.md queue 1, item 13).
+learning rate is the only sweepable hyperparameter.
+
+With ``streaming=True`` the features stay on the host: an identity layer
+keeps the trajectory itself (a ``np.memmap`` stays one), any other layer
+runs over 65,536-frame chunks on the card into host numpy
+(:meth:`.task.TrainingTask._chunked_apply`, JAX ``autoencoder.py:219-234``),
+and each batch ``(X, w)`` is gathered and copied to the card as the steps
+need it (:meth:`.task.TrainingTask._stream_epochs`).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from ..export import ColvarModel
 from ..models.ae import AutoEncoder
 from ..ops.features import Identity, as_pp_layer
 from .losses import weighted_mse_loss
-from .task import TrainingTask
+from .task import TrainingTask, numpy_dtype
 
 __all__ = ["AutoEncoderTask"]
 
@@ -33,7 +39,9 @@ class AutoEncoderTask(TrainingTask):
     :func:`.losses.weighted_mse_loss` on the features of the trajectory.
 
     Arguments are those of the JAX ``AutoEncoderTask``; the number of CVs
-    is the encoder's output dim.
+    is the encoder's output dim. ``streaming``: keep the features on the
+    host and stream the batches (True), keep them on the device (False), or
+    stream when they would exceed :attr:`STREAMING_AUTO_LIMIT_BYTES` (None).
 
     Attributes:
         train_loss / test_loss: per-epoch mean loss [epochs, 1] (column
@@ -59,6 +67,7 @@ class AutoEncoderTask(TrainingTask):
         plot_frequency: int = 0,
         verbose: bool = True,
         debug_mode: bool = True,
+        streaming: bool | None = None,
         **kwargs,
     ):
         if not isinstance(model, AutoEncoder):
@@ -74,15 +83,27 @@ class AutoEncoderTask(TrainingTask):
         self.init_model_and_optimizer()
 
         dt = default_dtype()
-        traj = torch.as_tensor(np.asarray(traj_obj.trajectory), dtype=dt)
-        traj = traj.to(self.device)
-        if isinstance(self.preprocessing_layer, Identity):
-            self._feature_traj = traj
+        raw = np.asanyarray(traj_obj.trajectory)
+        identity = isinstance(self.preprocessing_layer, Identity)
+        # the resident layout holds one copy of the features, as wide as
+        # the encoder's input (JAX takes the width from jax.eval_shape)
+        d_feat = self.model.encoder.layer_dims[0]
+        self._streaming = self._resolve_streaming(
+            streaming, raw.shape[0] * d_feat * dt.itemsize)
+        if self._streaming:
+            self._feature_traj = (raw if identity else self._chunked_apply(
+                self.preprocessing_layer, raw, device=self.device))
+            self._weights_np = np.asarray(traj_obj.weights,
+                                          dtype=numpy_dtype())
         else:
-            with torch.no_grad():
-                self._feature_traj = self.preprocessing_layer(traj)
-        self._weights = torch.as_tensor(
-            np.asarray(traj_obj.weights), dtype=dt).to(self.device)
+            traj = torch.as_tensor(np.asarray(raw), dtype=dt).to(self.device)
+            if identity:
+                self._feature_traj = traj
+            else:
+                with torch.no_grad():
+                    self._feature_traj = self.preprocessing_layer(traj)
+            self._weights = torch.as_tensor(
+                np.asarray(traj_obj.weights), dtype=dt).to(self.device)
         if self.verbose:
             print("\nShape of trajectory data array:\n "
                   f"{tuple(self._feature_traj.shape)}", flush=True)
@@ -118,6 +139,10 @@ class AutoEncoderTask(TrainingTask):
                                                self.batch_size)]
         test_b = test_idx[self._make_batches(np.arange(len(test_idx)),
                                              self.batch_size)]
+        rows = self._metric_rows(len(train_b) + len(test_b), 1)
+        if self._streaming:
+            self._prepared = (None, None, train_b, test_b, rows)
+            return self._prepared
 
         def pack(rows):
             out = []
@@ -126,9 +151,19 @@ class AutoEncoderTask(TrainingTask):
                 out.append((self._feature_traj[i], self._weights[i]))
             return out
 
-        rows = self._metric_rows(len(train_b) + len(test_b), 1)
         self._prepared = (pack(train_b), pack(test_b), train_b, test_b, rows)
         return self._prepared
+
+    def _stream_pack(self, rows):
+        """``(X, w)`` of the frames ``rows`` as host gathers of the
+        features, the indices sorted for a memmap. The port's batches hold
+        frame indices, so the JAX ``_stream_pack_train`` /
+        ``_stream_pack_test`` (``autoencoder.py:354-370``) are one method
+        here."""
+        i = np.asarray(rows, dtype=np.int64)
+        if self._sorted_gather(self._feature_traj):
+            i = np.sort(i)
+        return (self._feature_traj, i), (self._weights_np, i)
 
     def _graph_static(self):
         return (), (self.model,)

@@ -17,8 +17,11 @@ itself comes from :meth:`CommittorTask.committor_values` or
 :meth:`CommittorTask.committor_fn`. In a replica sweep ``alpha`` and
 ``beta`` are sweepable, and the preprocessing layer runs outside the
 replica map as for the generator
-(:class:`.eigenfunction.EigenFunctionTask`). The JAX package's streaming
-layout is not ported (ROADMAP.md queue 1, item 13).
+(:class:`.eigenfunction.EigenFunctionTask`). With ``streaming=True`` the
+trajectory stays on the host and each batch ``(X, w, a, b)`` is gathered
+and copied to the card as the steps need it
+(:meth:`.task.TrainingTask._stream_epochs`; JAX ``committor.py:124,
+535``), on the vjp path (JAX ``committor.py:404``).
 """
 
 from __future__ import annotations
@@ -31,7 +34,7 @@ from ..export import ColvarModel
 from ..ops.features import as_pp_layer
 from .eigenfunction import gram_batch
 from .losses import committor_loss, input_jacobian
-from .task import TrainingTask
+from .task import TrainingTask, numpy_dtype
 
 __all__ = ["CommittorTask"]
 
@@ -57,7 +60,11 @@ class CommittorTask(TrainingTask):
             dims (default ones).
         gram_pp: train through the preprocessing layer's per-batch Gram
             matrices (default: on for a non-identity preprocessing layer,
-            unless they would exceed :attr:`GRAM_AUTO_LIMIT_BYTES`).
+            unless they would exceed :attr:`GRAM_AUTO_LIMIT_BYTES`, and not
+            when streaming).
+        streaming: keep the trajectory on the host and stream the batches
+            (True), keep it on the device (False), or stream above
+            :attr:`STREAMING_AUTO_LIMIT_BYTES` (None).
         (remaining arguments as in the other tasks)
 
     Attributes:
@@ -90,6 +97,7 @@ class CommittorTask(TrainingTask):
         plot_frequency: int = 0,
         verbose: bool = True,
         debug_mode: bool = True,
+        streaming: bool | None = None,
         **kwargs,
     ):
         super().__init__(
@@ -102,16 +110,28 @@ class CommittorTask(TrainingTask):
         self.beta = float(beta)
         self.loss_names = ["loss", "dirichlet", "boundary_a", "boundary_b"]
 
-        raw = np.asarray(traj_obj.trajectory)
+        # a np.memmap stays one for the streaming layout
+        raw = np.asanyarray(traj_obj.trajectory)
         dt = default_dtype()
-        self._traj = torch.as_tensor(raw, dtype=dt).to(self.device)
-        self._weights = torch.as_tensor(
-            np.asarray(traj_obj.weights), dtype=dt).to(self.device)
+        self._streaming = self._resolve_streaming(streaming,
+                                                  raw.size * dt.itemsize)
+        self._traj = None
+        if self._streaming:
+            self._traj_np = raw
+            self._weights_np = np.asarray(traj_obj.weights,
+                                          dtype=numpy_dtype())
+        else:
+            self._traj = torch.as_tensor(np.asarray(raw), dtype=dt).to(
+                self.device)
+            self._weights = torch.as_tensor(
+                np.asarray(traj_obj.weights), dtype=dt).to(self.device)
         self._pp_for_loss = self.preprocessing_layer
-        n = raw.shape[0]
+        n = self._n_frames = raw.shape[0]
 
+        frame = torch.as_tensor(np.array(raw[:1]), dtype=dt).to(
+            self.device)
         with torch.no_grad():
-            out = self.model(self.preprocessing_layer(self._traj[:1]))
+            out = self.model(self.preprocessing_layer(frame))
         if out.dim() != 2 or out.shape[1] != 1:
             raise ValueError(
                 "committor model must map [B, d_r] -> [B, 1], got output "
@@ -178,7 +198,7 @@ class CommittorTask(TrainingTask):
         [nb_train + nb_test, 4]."""
         if self._prepared is not None:
             return self._prepared
-        train_idx, test_idx = self._make_split(self._traj.shape[0])
+        train_idx, test_idx = self._make_split(self._n_frames)
         train_b = train_idx[self._make_batches(np.arange(len(train_idx)),
                                                self.batch_size)]
         test_b = test_idx[self._make_batches(np.arange(len(test_idx)),
@@ -195,7 +215,14 @@ class CommittorTask(TrainingTask):
                     "region, lower test_ratio, or add boundary samples"
                 )
         self._resolve_gram(train_b, test_b)
-        dt = self._weights.dtype
+        rows = self._metric_rows(len(train_b) + len(test_b),
+                                 len(self.loss_names))
+        if self._streaming:
+            self._masks_np = (self._mask_a.astype(numpy_dtype()),
+                              self._mask_b.astype(numpy_dtype()))
+            self._prepared = (None, None, train_b, test_b, rows)
+            return self._prepared
+        dt = default_dtype()
         mask_a = torch.as_tensor(self._mask_a, dtype=dt, device=self.device)
         mask_b = torch.as_tensor(self._mask_b, dtype=dt, device=self.device)
 
@@ -212,10 +239,20 @@ class CommittorTask(TrainingTask):
                     out.append((X,) + rest)
             return out
 
-        rows = self._metric_rows(len(train_b) + len(test_b),
-                                 len(self.loss_names))
         self._prepared = (pack(train_b), pack(test_b), train_b, test_b, rows)
         return self._prepared
+
+    def _stream_pack(self, rows):
+        """``(X, w, a, b)`` of the frames ``rows`` as host gathers, the
+        indices sorted for a memmap. The port's batches hold frame indices,
+        so the JAX ``_stream_pack(split, rows)`` (``committor.py:535``) needs
+        no split here."""
+        i = np.asarray(rows, dtype=np.int64)
+        if self._sorted_gather(self._traj_np):
+            i = np.sort(i)
+        mask_a, mask_b = self._masks_np
+        return ((self._traj_np, i), (self._weights_np, i), (mask_a, i),
+                (mask_b, i))
 
     def _graph_static(self):
         return ((self.alpha, self.beta, self._gram),

@@ -26,6 +26,17 @@ and ``unroll`` (``colvarsfinder_tpu/core/eigenfunction.py:193-291``).
 Per-step metrics stay on the device and reach the host once per chunk of
 epochs (the epochs up to the next checkpoint, plot or progress event).
 
+With ``streaming=True`` the trajectory and weights stay host numpy (a
+``np.memmap`` stays one, and is cast to the default dtype per batch), and
+each batch is gathered and copied to the card as the steps need it
+(:meth:`.task.TrainingTask._stream_epochs`; JAX ``_stream_fns`` and
+``_stream_pack``, ``eigenfunction.py:303-343, 869-891``): ``(X, X_l, w,
+w_l)`` for the transfer operator (the fused step included), ``(X, w)`` for
+the generator, which takes the vjp path (the Gram path needs its
+precomputed tensors on the device). ``precompute_features`` then runs the
+preprocessing layer over 65,536-frame chunks on the card into host numpy
+(:meth:`.task.TrainingTask._chunked_apply`).
+
 In a replica sweep (:mod:`..parallel.ensemble`) the preprocessing layer
 runs once per batch outside the replica map: the transfer operator's
 features of ``X`` and ``X_l`` (two K2 launches per step through
@@ -54,7 +65,7 @@ from ..ops.fused_eigen import (
     transfer_stats,
 )
 from .losses import eigen_loss, input_jacobian
-from .task import TrainingTask
+from .task import TrainingTask, numpy_dtype
 
 __all__ = ["EigenFunctionTask", "gram_batch"]
 
@@ -124,7 +135,10 @@ class EigenFunctionTask(TrainingTask):
       (:func:`..ops.fused_eigen.fwd_launch_shape`,
       :func:`..ops.fused_eigen.bwd_launch_shape`);
     * ``precompute_features=True`` (transfer operator only) computes the
-      features once for the whole trajectory.
+      features once for the whole trajectory;
+    * ``streaming``: keep the trajectory on the host and stream the batches
+      (True), keep it on the device (False), or stream when the device
+      copies would exceed :attr:`STREAMING_AUTO_LIMIT_BYTES` (None).
 
     Attributes:
         train_loss / test_loss: per-epoch mean metrics [epochs, 3 + k] with
@@ -161,6 +175,7 @@ class EigenFunctionTask(TrainingTask):
         fused_step: bool = False,
         gram_pp: bool | None = None,
         gram_dtype=None,
+        streaming: bool | None = None,
         **kwargs,
     ):
         if not isinstance(model, EigenFunctions):
@@ -228,12 +243,19 @@ class EigenFunctionTask(TrainingTask):
         self.init_model_and_optimizer()
 
         dt = default_dtype()
-        self._traj = torch.as_tensor(
-            np.asarray(traj_obj.trajectory), dtype=dt
-        ).to(self.device)
-        self._weights = torch.as_tensor(
-            np.asarray(traj_obj.weights), dtype=dt
-        ).to(self.device)
+        raw = np.asanyarray(traj_obj.trajectory)
+        self._streaming = self._resolve_streaming(
+            streaming, (2 if lag_idx > 0 else 1) * raw.size * dt.itemsize)
+        self._traj = self._traj_np = None
+        if self._streaming:
+            self._traj_np = raw
+            self._weights_np = np.asarray(traj_obj.weights,
+                                          dtype=numpy_dtype())
+        else:
+            self._traj = torch.as_tensor(np.asarray(raw), dtype=dt).to(
+                self.device)
+            self._weights = torch.as_tensor(
+                np.asarray(traj_obj.weights), dtype=dt).to(self.device)
         self._eig_w_t = torch.as_tensor(self._eig_w, dtype=dt,
                                         device=self.device)
 
@@ -241,11 +263,15 @@ class EigenFunctionTask(TrainingTask):
         self._pp_for_loss = self.preprocessing_layer
         if self.precompute_features:
             # features once for the whole trajectory, as the JAX option
-            with torch.no_grad():
-                self._traj = torch.cat([
-                    self.preprocessing_layer(chunk)
-                    for chunk in torch.split(self._traj, 65536)
-                ])
+            if self._streaming:
+                self._traj_np = self._chunked_apply(
+                    self.preprocessing_layer, raw, device=self.device)
+            else:
+                with torch.no_grad():
+                    self._traj = torch.cat([
+                        self.preprocessing_layer(chunk)
+                        for chunk in torch.split(self._traj, 65536)
+                    ])
             self._pp_for_loss = Identity()
 
         self._diag_coeff = None
@@ -290,6 +316,11 @@ class EigenFunctionTask(TrainingTask):
         train_b = self._make_batches(train_idx, self.batch_size)
         test_b = self._make_batches(test_idx, self.batch_size)
         self._resolve_gram(train_b, test_b)
+        rows = self._metric_rows(len(train_b) + len(test_b),
+                                 len(self.loss_names) + self.k)
+        if self._streaming:
+            self._prepared = (None, None, train_b, test_b, rows)
+            return self._prepared
         m_dtype = (torch.bfloat16 if self._gram_dtype == "bfloat16"
                    else self._traj.dtype)
 
@@ -309,10 +340,21 @@ class EigenFunctionTask(TrainingTask):
                     out.append((X, w))
             return out
 
-        rows = self._metric_rows(len(train_b) + len(test_b),
-                                 len(self.loss_names) + self.k)
         self._prepared = (pack(train_b), pack(test_b), train_b, test_b, rows)
         return self._prepared
+
+    def _stream_pack(self, rows):
+        """``(X, X_l, w, w_l)`` (transfer operator) or ``(X, w)``
+        (generator) of the frames ``rows`` as host gathers, the indices
+        sorted for a memmap (JAX ``eigenfunction.py:869-891``)."""
+        i = np.asarray(rows, dtype=np.int64)
+        if self._sorted_gather(self._traj_np):
+            i = np.sort(i)
+        X, w = (self._traj_np, i), (self._weights_np, i)
+        if self.lag_idx > 0:
+            il = i + self.lag_idx
+            return X, (self._traj_np, il), w, (self._weights_np, il)
+        return X, w
 
     def _graph_static(self):
         return ((self.fused_step, self._sort_eigvals_in_training, self._alpha,

@@ -29,9 +29,16 @@ bakes in, so the graph key holds them by value. In a replica sweep they
 are tensors, one value per replica, while the gates stay decided by the
 task's own values (``colvarsfinder_tpu/parallel/ensemble.py:920-938``);
 the features are computed once per batch outside the replica map, as for
-:class:`.eigenfunction.EigenFunctionTask`. The JAX package's streaming,
-``prebatch`` and ``shard_trajectory`` layouts are not ported (ROADMAP.md
-queue 1, items 13 and 15).
+:class:`.eigenfunction.EigenFunctionTask`.
+
+With ``streaming=True`` the trajectory stays on the host and each batch
+``(X, X_ae, X_l, w, w_l)`` is gathered and copied to the card as the steps
+need it (:meth:`.task.TrainingTask._stream_epochs`; JAX
+``regautoencoder.py:308, 857-887``), the lagged frames of equal lags once;
+the generator regularizer takes the vjp path there, and
+``precompute_features`` runs over chunks on the card into host numpy. The
+JAX package's ``prebatch`` and ``shard_trajectory`` layouts are not ported
+(ROADMAP.md queue 1, item 15b).
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ from .losses import (
     reg_eigen_loss,
     weighted_mse_lagged_loss,
 )
-from .task import TrainingTask
+from .task import TrainingTask, numpy_dtype
 
 __all__ = ["RegAutoEncoderTask"]
 
@@ -76,7 +83,13 @@ class RegAutoEncoderTask(TrainingTask):
       through the preprocessing layer);
     * ``gram_pp`` (generator regularizer only; default on for a
       non-identity preprocessing layer): train through the precomputed Gram
-      matrices, unless they would exceed :attr:`GRAM_AUTO_LIMIT_BYTES`.
+      matrices, unless they would exceed :attr:`GRAM_AUTO_LIMIT_BYTES` or
+      the task streams;
+    * ``streaming``: keep the trajectory on the host and stream the batches
+      (True), keep it on the device (False), or stream when its device
+      copies, one per active lag, would exceed
+      :attr:`STREAMING_AUTO_LIMIT_BYTES` (None; JAX
+      ``regautoencoder.py:451-460``).
 
     Attributes:
         train_loss / test_loss: per-epoch mean metrics [epochs, 7 + K] with
@@ -120,6 +133,7 @@ class RegAutoEncoderTask(TrainingTask):
         debug_mode: bool = True,
         precompute_features: bool = False,
         gram_pp: bool | None = None,
+        streaming: bool | None = None,
         **kwargs,
     ):
         if not isinstance(model, RegAutoEncoder):
@@ -172,19 +186,34 @@ class RegAutoEncoderTask(TrainingTask):
         )
 
         dt = default_dtype()
-        self._traj = torch.as_tensor(
-            np.asarray(traj_obj.trajectory), dtype=dt).to(self.device)
-        self._weights = torch.as_tensor(
-            np.asarray(traj_obj.weights), dtype=dt).to(self.device)
-        self.tot_dim = int(np.prod(self._traj.shape[1:]))
+        raw = np.asanyarray(traj_obj.trajectory)
+        n_copies = (1 + (self.alpha > _EPS and self.lag_ae_idx > 0)
+                    + (sum(gamma) > _EPS and self.lag_idx > 0))
+        self._streaming = self._resolve_streaming(
+            streaming, n_copies * raw.size * dt.itemsize)
+        self._traj = self._traj_np = None
+        if self._streaming:
+            self._traj_np = raw
+            self._weights_np = np.asarray(traj_obj.weights,
+                                          dtype=numpy_dtype())
+        else:
+            self._traj = torch.as_tensor(np.asarray(raw), dtype=dt).to(
+                self.device)
+            self._weights = torch.as_tensor(
+                np.asarray(traj_obj.weights), dtype=dt).to(self.device)
+        self.tot_dim = int(np.prod(raw.shape[1:]))
         self.precompute_features = bool(precompute_features)
         self._pp_for_loss = self.preprocessing_layer
         if self.precompute_features:
-            with torch.no_grad():
-                self._traj = torch.cat([
-                    self.preprocessing_layer(chunk)
-                    for chunk in torch.split(self._traj, 65536)
-                ])
+            if self._streaming:
+                self._traj_np = self._chunked_apply(
+                    self.preprocessing_layer, raw, device=self.device)
+            else:
+                with torch.no_grad():
+                    self._traj = torch.cat([
+                        self.preprocessing_layer(chunk)
+                        for chunk in torch.split(self._traj, 65536)
+                    ])
             self._pp_for_loss = Identity()
         self._diag_coeff = None
         if gen_reg_on:
@@ -193,8 +222,9 @@ class RegAutoEncoderTask(TrainingTask):
                                           device=self.device)
         self._resolve_gram_request(gram_pp, gen_reg_on)
         if self.verbose:
+            data = self._traj_np if self._streaming else self._traj
             print("\nShape of trajectory data array:\n "
-                  f"{tuple(self._traj.shape)}", flush=True)
+                  f"{tuple(data.shape)}", flush=True)
 
     # ------------------------------------------------------------------
     def _gates(self):
@@ -269,6 +299,11 @@ class RegAutoEncoderTask(TrainingTask):
         train_b = self._make_batches(train_idx, self.batch_size)
         test_b = self._make_batches(test_idx, self.batch_size)
         self._resolve_gram(train_b, test_b)
+        rows = self._metric_rows(len(train_b) + len(test_b),
+                                 len(self.loss_names) + self.num_reg)
+        if self._streaming:
+            self._prepared = (None, None, train_b, test_b, rows)
+            return self._prepared
         ae_on, eig_on, _ = self._gates()
         ae_lag = ae_on and self.lag_ae_idx > 0
         eig_lag = eig_on and self.lag_idx > 0
@@ -296,10 +331,28 @@ class RegAutoEncoderTask(TrainingTask):
                     out.append((X, X_ae, None, w, None))
             return out
 
-        rows = self._metric_rows(len(train_b) + len(test_b),
-                                 len(self.loss_names) + self.num_reg)
         self._prepared = (pack(train_b), pack(test_b), train_b, test_b, rows)
         return self._prepared
+
+    def _stream_pack(self, rows):
+        """``(X, X_ae, X_l, w, w_l)`` of the frames ``rows`` as host
+        gathers, None for an unused piece, the indices sorted for a memmap
+        (JAX ``regautoencoder.py:857-887``). With equal lags ``X_l`` is the
+        gather of ``X_ae``: one copy, one tensor, one pass of the layer."""
+        ae_on, eig_on, _ = self._gates()
+        i = np.asarray(rows, dtype=np.int64)
+        if self._sorted_gather(self._traj_np):
+            i = np.sort(i)
+        traj, wts = self._traj_np, self._weights_np
+        X_ae = ((traj, i + self.lag_ae_idx)
+                if ae_on and self.lag_ae_idx > 0 else None)
+        X_l = w_l = None
+        if eig_on and self.lag_idx > 0:
+            il = i + self.lag_idx
+            X_l = (X_ae if X_ae is not None and self.lag_idx == self.lag_ae_idx
+                   else (traj, il))
+            w_l = (wts, il)
+        return (traj, i), X_ae, X_l, (wts, i), w_l
 
     def _graph_static(self):
         return ((self.alpha, tuple(self.gamma), tuple(self.eta),

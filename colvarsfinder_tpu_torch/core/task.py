@@ -23,8 +23,17 @@ hyperparameters as tensors (:meth:`TrainingTask._hyper`), the inputs of a
 batch that all replicas share (:meth:`TrainingTask._replica_inputs`) and
 the loss of one replica on them (:meth:`TrainingTask._replica_loss`).
 
-Not ported yet: streaming, the device mesh, ``shard_trajectory`` and the
-``unroll``/``prebatch`` switches (ROADMAP.md queue 1, items 13 and 15b).
+With ``streaming=True`` (or by default above
+:attr:`TrainingTask.STREAMING_AUTO_LIMIT_BYTES`) the trajectory stays in host
+memory, a ``np.memmap`` included, and each batch is gathered on the host,
+copied to the card and trained on as it arrives
+(:meth:`TrainingTask._stream_epochs`, the pipeline of :mod:`.streaming`);
+the first train step and the first test batch of a call without valid
+graphs run eagerly and are captured, and every later one is a replay of its
+graph.
+
+Not ported yet: the device mesh, ``shard_trajectory`` and the
+``unroll``/``prebatch`` switches (ROADMAP.md queue 1, item 15b).
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ import os
 import time
 import warnings
 from abc import ABC, abstractmethod
+from collections import deque
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -46,8 +56,14 @@ from ..export import export_colvar
 from ..logging_utils import MetricsWriter, profile_trace
 from ..ops import _cuda
 from ..ops.features import Identity
+from .streaming import GatherPool, StreamIO
 
 __all__ = ["TrainingTask", "capture_epoch", "train_test_split"]
+
+
+def numpy_dtype() -> np.dtype:
+    """The numpy dtype of :func:`..config.default_dtype`."""
+    return torch.empty((), dtype=default_dtype()).numpy().dtype
 
 
 def train_test_split(idx: np.ndarray, test_size: float, seed: int):
@@ -154,6 +170,31 @@ class TrainingTask(ABC):
         profile_dir: if set, wrap ``train()`` in a ``torch.profiler`` trace
             written to this directory (:func:`..logging_utils.profile_trace`)
         progress_interval: print progress at least every N epochs
+
+    The tasks take ``streaming=`` (True, False, or None for the size rule
+    of :meth:`_resolve_streaming`). A streaming task reads these instance
+    attributes when they are set, else the class defaults:
+
+    * ``stream_prefetch`` (:attr:`STREAM_PREFETCH_DEPTH`): batches copied to
+      the card ahead of the step that runs; 0 is the synchronous loop
+      (gather, copy and step in turn, on the calling thread);
+    * ``stream_transfer_workers`` (:attr:`STREAM_TRANSFER_WORKERS`): the
+      threads that gather batches into the pinned host buffers. In the JAX
+      package they issue transfers; here one copy stream carries every
+      host-to-device copy, issued asynchronously by the calling thread,
+      which one stream's copies saturate;
+    * ``stream_inflight`` (:attr:`STREAM_INFLIGHT_STEPS`): every this many
+      steps the calling thread waits for the step of as many steps earlier
+      (clamped to at least 1);
+    * ``stream_sorted_gather``: sort each batch's frame indices before the
+      gather (default: for a ``np.memmap``, :meth:`_sorted_gather`);
+    * ``stream_pack_transfers`` (:attr:`STREAM_PACK_TRANSFERS`): one host
+      buffer, and one copy, per dtype and batch;
+    * ``stream_wire_dtype``: None, ``'float16'`` or ``'bfloat16'``: the
+      frames travel in that dtype and are upcast on the card; weights and
+      masks keep the default dtype;
+    * ``stream_timing``: with True, each streamed ``train()`` leaves the
+      time of each stage in :attr:`stream_stats`.
     """
 
     #: the prepared batches (:meth:`_prepare_data`) and the captured epoch
@@ -165,6 +206,22 @@ class TrainingTask(ABC):
     #: the Gram path stores one [B, d_r, d_r] tensor per batch; above this
     #: total it falls back to the vjp path (the JAX package's limit)
     GRAM_AUTO_LIMIT_BYTES = 4 << 30
+
+    #: above this estimate of the device-resident data, ``streaming=None``
+    #: streams (the JAX package's limit, so the same inputs decide alike)
+    STREAMING_AUTO_LIMIT_BYTES = 8 << 30
+    #: class defaults of the instance overrides listed in the class docstring
+    STREAM_PREFETCH_DEPTH = 2
+    STREAM_INFLIGHT_STEPS = 32
+    STREAM_TRANSFER_WORKERS = 4
+    STREAM_PACK_TRANSFERS = True
+    stream_timing = False
+    _streaming = False
+    #: the device mesh and the frame-sharded trajectory (ROADMAP item 15b):
+    #: neither exists in the port; :meth:`_resolve_streaming` reads them as
+    #: the JAX package does
+    mesh = None
+    shard_trajectory = False
 
     def __init__(
         self,
@@ -221,6 +278,10 @@ class TrainingTask(ABC):
         self.progress_interval = int(progress_interval)
         self.epoch_times: list = []
         self.model_name = type(self).__name__
+        # the streaming layout's step graphs by kind ('train', 'test') and
+        # its buffers (_stream_ios)
+        self._stream_graphs: dict = {}
+        self._stream_io = None
 
         if self.verbose:
             print(f"\n[Info] Log directory: {self.model_path}\n", flush=True)
@@ -361,24 +422,26 @@ class TrainingTask(ABC):
     def _resolve_gram_request(self, gram_pp, applicable: bool) -> None:
         """The Gram path is requested by ``gram_pp``, or by default where it
         applies and the preprocessing layer is not the identity; the width
-        of the features it needs is taken from one frame here."""
+        of the features it needs is taken from one frame here (not under
+        streaming, which has no Gram path)."""
         self._gram_explicit = gram_pp is not None
         if gram_pp is None:
             gram_pp = applicable and not isinstance(self._pp_for_loss,
                                                     Identity)
         self._gram_requested = bool(gram_pp)
         self._gram = False  # resolved with the batches (_resolve_gram)
-        if self._gram_requested:
+        if self._gram_requested and not self._streaming:
             with torch.no_grad():
                 feats = self._pp_for_loss(self._traj[:1])
             self._d_r = feats.reshape(1, -1).shape[1]
 
     def _resolve_gram(self, train_b, test_b) -> None:
-        """Take the Gram path where requested and its [B, d_r, d_r] tensors
-        fit in ``GRAM_AUTO_LIMIT_BYTES``; warn where an explicit
-        ``gram_pp=True`` cannot be honoured
-        (``colvarsfinder_tpu/core/eigenfunction.py:744-760, 857-865``)."""
-        self._gram = self._gram_requested
+        """Take the Gram path where requested, not streaming, and its [B,
+        d_r, d_r] tensors fit in ``GRAM_AUTO_LIMIT_BYTES``; warn where an
+        explicit ``gram_pp=True`` cannot be honoured
+        (``colvarsfinder_tpu/core/eigenfunction.py:718-724, 744-760,
+        857-865``)."""
+        self._gram = self._gram_requested and not self._streaming
         if self._gram:
             n_rows = train_b.size + test_b.size
             m_bytes = n_rows * self._d_r**2 * self._traj.element_size()
@@ -391,7 +454,8 @@ class TrainingTask(ABC):
         if self._gram_requested and self._gram_explicit and not self._gram:
             warnings.warn(
                 "gram_pp=True could not be honored (the Gram tensors exceed "
-                "GRAM_AUTO_LIMIT_BYTES); training uses the vjp path"
+                "GRAM_AUTO_LIMIT_BYTES, or streaming keeps the data on the "
+                "host); training uses the vjp path"
             )
 
     # ------------------------------------------------------------------
@@ -414,7 +478,7 @@ class TrainingTask(ABC):
         task's own; ``held`` holds them for the graph."""
         values, objects = self._graph_static()
         opt = self.optimizer
-        held = [self._prepared, opt, *objects]
+        held = [self._prepared, self._stream_io, opt, *objects]
         held += [p for g in opt.param_groups for p in g["params"]]
         held += [t for state in opt.state.values() for t in state.values()
                  if torch.is_tensor(t)]
@@ -424,16 +488,24 @@ class TrainingTask(ABC):
         return key, held
 
     def _drop_graph(self) -> None:
-        """Forget the captured epoch. Its memory pool is freed with the
-        graph and the gradients the graph left on the parameters."""
-        if self._graph is not None:
+        """Forget the captured epoch (or streamed steps). Its memory pool is
+        freed with the graph and the gradients the graph left on the
+        parameters."""
+        if self._graph is not None or self._stream_graphs:
             self._graph = None
+            self._stream_graphs = {}
             self.model.zero_grad(set_to_none=True)
 
     def _check_graph(self) -> None:
-        """Drop the captured epoch if anything it depends on has changed."""
-        if self._graph is not None and self._graph.key != self._graph_key()[0]:
-            self._drop_graph()
+        """Drop the captured epoch (or streamed steps) if anything it
+        depends on has changed."""
+        graphs = list(self._stream_graphs.values())
+        if self._graph is not None:
+            graphs.append(self._graph)
+        if graphs:
+            key = self._graph_key()[0]
+            if any(g.key != key for g in graphs):
+                self._drop_graph()
 
     def _run_epoch(self, body) -> None:
         """One epoch of ``body()``. The CPU runs it eagerly. The card
@@ -455,6 +527,7 @@ class TrainingTask(ABC):
         ``train()`` prepares the data and captures again."""
         self._drop_graph()
         self._prepared = None
+        self._stream_io = None
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
@@ -532,7 +605,7 @@ class TrainingTask(ABC):
 
     def _metric_rows(self, nb: int, width: int) -> torch.Tensor:
         """The buffer of one epoch's metric rows."""
-        return torch.empty((nb, width), dtype=self._weights.dtype,
+        return torch.empty((nb, width), dtype=default_dtype(),
                            device=self.device)
 
     def _chunk_fetched(self, train_cm: np.ndarray) -> None:
@@ -543,27 +616,297 @@ class TrainingTask(ABC):
         """Called in each train step between the backward and the optimizer
         step, where a task may change the gradients in place."""
 
+    def _train_step(self, batch):
+        """One train step on ``batch`` (forward, ``zero_grad``, backward,
+        optimizer step); returns its metric row. With ``set_to_none=True``
+        the backward allocates the gradients (in a capture, from the graph's
+        pool) where zeroing them in place would cost a memset per
+        parameter."""
+        loss, metrics = self._batch_metrics(*batch)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        self._before_step()
+        self.optimizer.step()
+        return metrics
+
     def _epoch_body(self, train_data, test_data, rows):
-        """One epoch: a step per train batch (forward, ``zero_grad``,
-        backward, optimizer step), then the test batches under ``no_grad``
-        (JAX ``eigenfunction.py:253``; a Dirichlet loss still takes its
-        input gradients there, and records nothing); every batch's metric
-        row lands in ``rows``, train batches first. It syncs nothing with
-        the host and reads the batches in place, so the card can capture
-        it. With ``set_to_none=True`` each step's backward allocates its
-        gradients (in a capture, from the graph's pool) where zeroing them
-        in place would cost a memset per parameter."""
-        ms = []
-        for batch in train_data:
-            loss, metrics = self._batch_metrics(*batch)
-            self.optimizer.zero_grad(set_to_none=True)
-            loss.backward()
-            self._before_step()
-            self.optimizer.step()
-            ms.append(metrics)
+        """One epoch: a step per train batch, then the test batches under
+        ``no_grad`` (JAX ``eigenfunction.py:253``; a Dirichlet loss still
+        takes its input gradients there, and records nothing); every batch's
+        metric row lands in ``rows``, train batches first. It syncs nothing
+        with the host and reads the batches in place, so the card can
+        capture it."""
+        ms = [self._train_step(batch) for batch in train_data]
         with torch.no_grad():
             ms += [self._batch_metrics(*batch)[1] for batch in test_data]
         torch.stack(ms, out=rows)
+
+    # ------------------------------------------------------------------
+    # the streaming layout (colvarsfinder_tpu/core/task.py:440-851)
+    def _resolve_streaming(self, streaming, device_bytes: int) -> bool:
+        """Decide the layout as the JAX package does
+        (``colvarsfinder_tpu/core/task.py:447-480``): an explicit
+        ``streaming=`` wins; None streams when the device-resident data
+        would exceed :attr:`STREAMING_AUTO_LIMIT_BYTES` and neither a mesh
+        nor ``shard_trajectory`` is set. ``streaming=True`` with
+        ``shard_trajectory`` raises ``ValueError`` (the JAX package
+        asserts), and with a mesh ``NotImplementedError``: the port has
+        neither before ROADMAP item 15b."""
+        if streaming is None:
+            streaming = (device_bytes > self.STREAMING_AUTO_LIMIT_BYTES
+                         and self.mesh is None and not self.shard_trajectory)
+        streaming = bool(streaming)
+        if streaming and self.shard_trajectory:
+            raise ValueError(
+                "streaming=True keeps the trajectory on the host; it cannot "
+                "combine with shard_trajectory (device-resident frame "
+                "sharding)")
+        if streaming and self.mesh is not None:
+            raise NotImplementedError(
+                "streaming over a device mesh is ROADMAP item 15b")
+        return streaming
+
+    @staticmethod
+    def _chunked_apply(fn, arr, chunk: int = 65536, device=None) -> np.ndarray:
+        """``fn`` over axis 0 of the host array ``arr`` in chunks of
+        ``chunk`` rows, each cast to the default dtype and run on
+        ``device`` (None: the card) under ``no_grad``; returns host numpy
+        (``colvarsfinder_tpu/core/task.py:503``): the streaming layout's
+        feature pass over a trajectory that stays on the host."""
+        device = resolve_device(device)
+        outs = []
+        with torch.no_grad():
+            for s in range(0, arr.shape[0], chunk):
+                x = torch.from_numpy(np.array(arr[s:s + chunk],
+                                              dtype=numpy_dtype()))
+                outs.append(fn(x.to(device)).cpu().numpy())
+        return np.concatenate(outs, axis=0)
+
+    def _sorted_gather(self, arr) -> bool:
+        """Sort a streamed batch's frame indices before the gather? The
+        batch losses are weighted means, so the order within a batch is
+        free (within rounding): for a ``np.memmap`` sorted indices make one
+        quasi-sequential sweep of the file; an in-RAM array keeps the
+        resident order, so that streaming stays bitwise equal to the
+        resident layout. The ``stream_sorted_gather`` attribute overrides it
+        (``colvarsfinder_tpu/core/task.py:535-555``)."""
+        ov = getattr(self, "stream_sorted_gather", None)
+        if ov is not None:
+            return bool(ov)
+        seen = 0
+        while isinstance(arr, np.ndarray) and seen < 8:
+            if isinstance(arr, np.memmap):
+                return True
+            arr = arr.base
+            seen += 1
+        return False
+
+    def _stream_pack(self, rows):
+        """One streamed batch of the frame indices ``rows``: its leaves,
+        each None or a gather ``(host array, indices)`` (:mod:`.streaming`),
+        in the order of :meth:`_batch_metrics`' arguments. Streaming tasks
+        override it."""
+        raise NotImplementedError(f"{type(self).__name__} does not stream")
+
+    def _stream_config(self) -> tuple:
+        """``(depth, workers, packed, wire)`` from the instance overrides
+        and the class defaults."""
+        depth = max(0, int(getattr(self, "stream_prefetch",
+                                   self.STREAM_PREFETCH_DEPTH)))
+        workers = max(1, int(getattr(self, "stream_transfer_workers",
+                                     self.STREAM_TRANSFER_WORKERS)))
+        packed = bool(getattr(self, "stream_pack_transfers",
+                              self.STREAM_PACK_TRANSFERS))
+        wire = getattr(self, "stream_wire_dtype", None)
+        if wire is not None:
+            name = str(wire).replace("torch.", "")
+            if name not in ("float16", "bfloat16"):
+                raise ValueError("stream_wire_dtype must be None, 'float16' "
+                                 f"or 'bfloat16', got {wire!r}")
+            wire = getattr(torch, name)
+        return depth, workers if depth else 0, packed, wire
+
+    def _stream_ios(self, train_b, test_b, width: int):
+        """The :class:`.streaming.StreamIO` of the train and of the test
+        batches, built for the current configuration (a changed one
+        rebuilds them and drops the step graphs): host rings of ``depth +
+        workers`` buffers, ``depth + 1`` device slots, one copy stream."""
+        depth, workers, packed, wire = self._stream_config()
+        key = (depth, workers, packed, wire, width)
+        if self._stream_io is None or self._stream_io[0] != key:
+            self._drop_graph()
+            copy_stream = (torch.cuda.Stream(self.device)
+                           if self.device.type == "cuda" else None)
+            ios = tuple(
+                StreamIO(self._stream_pack(b[0]), device=self.device,
+                         dtype=default_dtype(), wire=wire, packed=packed,
+                         n_host=depth + max(workers, 1), n_slots=depth + 1,
+                         width=width, copy_stream=copy_stream)
+                for b in (train_b, test_b))
+            self._stream_io = (key,) + ios
+        return self._stream_io[1:]
+
+    def _stream_step(self, io, train: bool) -> None:
+        """One streamed step on ``io``'s inputs, its metric row in
+        ``io.row``. On the card a step kind's first call in a task without
+        a valid graph runs eagerly and is captured (:func:`capture_epoch`);
+        every later one replays the graph."""
+        def body():
+            batch = io.batch()
+            if train:
+                io.row.copy_(self._train_step(batch))
+            else:
+                with torch.no_grad():
+                    io.row.copy_(self._batch_metrics(*batch)[1])
+
+        kind = "train" if train else "test"
+        graph = self._stream_graphs.get(kind)
+        if self.device.type != "cuda" or self._eager_on_card:
+            body()
+        elif graph is not None:
+            _cuda.replay(graph.graph, graph.launches)
+        else:
+            self._stream_graphs = {
+                **self._stream_graphs,
+                kind: capture_epoch(body, self.device, self._graph_key)}
+
+    def _stream_epochs(self, chunk: int, train_b, test_b, rows):
+        """Run ``chunk`` epochs with the data on the host: the counterpart
+        of ``TrainingTask._stream_epochs``
+        (``colvarsfinder_tpu/core/task.py:566-851``). Returns the metric
+        rows [chunk, nb_train + nb_test, width] on the device, as the
+        resident epochs leave them.
+
+        A pipeline of three stages: ``stream_transfer_workers`` threads
+        gather batches into a ring of (pinned) host buffers, up to ``depth +
+        workers`` batches ahead; the calling thread issues each batch's copy
+        into a device slot on the copy stream, ``depth`` batches ahead of
+        the step, and runs the steps on the current stream, each after its
+        slot's copy. A host buffer is refilled only after its copy has
+        completed, and a slot only after its step has taken it in. With
+        ``stream_prefetch=0`` the calling thread gathers, copies and steps
+        in turn. The batch order is the resident one, so in-RAM data trains
+        bit for bit as the resident layout does."""
+        train_io, test_io = self._stream_ios(train_b, test_b, rows.shape[1])
+        self._check_graph()
+        depth, workers, _, _ = self._stream_config()
+        window = max(1, int(getattr(self, "stream_inflight",
+                                    self.STREAM_INFLIGHT_STEPS)))
+        cuda = self.device.type == "cuda"
+        nb_train, nb = len(train_b), len(train_b) + len(test_b)
+        total = chunk * nb
+        stats = None
+        if self.stream_timing:
+            stats = dict(gather_s=[], wait_gather_s=0.0, wait_host_s=0.0,
+                         copy_s=0.0, step_s=0.0, h2d=[], step=[])
+            t_start = time.perf_counter()
+
+        def where(s):
+            """(io, use count, frame indices) of sequence number s"""
+            j, i = divmod(s, nb)
+            if i < nb_train:
+                return train_io, j * nb_train + i, train_b[i]
+            i -= nb_train
+            return test_io, j * (nb - nb_train) + i, test_b[i]
+
+        def gather(s):
+            t0 = time.perf_counter()
+            io, c, r = where(s)
+            io.gather(c, self._stream_pack(r))
+            if stats is not None:
+                stats["gather_s"].append(time.perf_counter() - t0)
+
+        out = torch.empty((chunk,) + tuple(rows.shape), dtype=rows.dtype,
+                          device=self.device)
+        h2d = step_start = None
+        if stats is not None and cuda:
+            h2d, step_start = stats["h2d"], []
+        pool = GatherPool(workers, gather) if workers else None
+        inflight: deque = deque()
+        issued = moved = 0
+        try:
+            for s in range(total):
+                while issued < min(total, s + train_io.n_host):
+                    io, c, _ = where(issued)
+                    t0 = time.perf_counter()
+                    io.wait_host(c)
+                    if stats is not None:
+                        stats["wait_host_s"] += time.perf_counter() - t0
+                    if pool is not None:
+                        pool.submit(issued)
+                    else:
+                        gather(issued)
+                    issued += 1
+                while moved < min(total, s + depth + 1):
+                    if pool is not None:
+                        t0 = time.perf_counter()
+                        pool.wait(moved)
+                        if stats is not None:
+                            stats["wait_gather_s"] += time.perf_counter() - t0
+                    io, c, _ = where(moved)
+                    t0 = time.perf_counter()
+                    io.transfer(c, h2d)
+                    moved += 1
+                    if stats is not None:
+                        stats["copy_s"] += time.perf_counter() - t0
+                io, c, _ = where(s)
+                t0 = time.perf_counter()
+                io.consume(c, step_start)
+                t1 = time.perf_counter()
+                self._stream_step(io, io is train_io)
+                j, i = divmod(s, nb)
+                out[j, i].copy_(io.row)
+                if stats is not None:
+                    t2 = time.perf_counter()
+                    stats["copy_s"] += t1 - t0
+                    stats["step_s"] += t2 - t1
+                if step_start is not None:
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    stats["step"].append((step_start[-1], end))
+                if cuda and (s + 1) % window == 0:
+                    # at most ~window dispatched but unfinished steps
+                    ev = torch.cuda.Event()
+                    ev.record()
+                    inflight.append(ev)
+                    if len(inflight) > 1:
+                        inflight.popleft().synchronize()
+        finally:
+            if pool is not None:
+                pool.close()
+            if cuda:
+                # every copy and step of this call has run before a later
+                # call refills a buffer or slot (also after a failure); the
+                # chunk's fetch would wait for them anyway
+                torch.cuda.synchronize(self.device)
+        if stats is not None:
+            self._stream_summary(stats, t_start, train_io, test_io)
+        return out
+
+    def _stream_summary(self, stats, t_start, train_io, test_io) -> None:
+        """Fill :attr:`stream_stats` from one :meth:`_stream_epochs` call:
+        per batch the gather's host seconds (on its thread), the copy's
+        device ms and bytes and the step's device ms (from its slot's
+        arrival to its metric row, CUDA events; the card only); the calling
+        thread's seconds waiting for gathers and for host buffers, issuing
+        the copies and running the steps (a capture included); the wall
+        seconds and the host buffers' bytes."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stream_stats = {
+            "wall_s": time.perf_counter() - t_start,
+            "gather_s": np.asarray(stats["gather_s"]),
+            "wait_gather_s": stats["wait_gather_s"],
+            "wait_host_s": stats["wait_host_s"],
+            "copy_s": stats["copy_s"],
+            "step_s": stats["step_s"],
+            "h2d_ms": np.asarray([a.elapsed_time(b)
+                                  for a, b, _ in stats["h2d"]]),
+            "h2d_bytes": np.asarray([n for _, _, n in stats["h2d"]]),
+            "step_ms": np.asarray([a.elapsed_time(b)
+                                   for a, b in stats["step"]]),
+            "host_bytes": train_io.host_bytes + test_io.host_bytes,
+        }
 
     # ------------------------------------------------------------------
     # what the replica sweeps need (parallel/ensemble.py)
@@ -631,11 +974,15 @@ class TrainingTask(ABC):
             chunk = self._next_chunk(epoch)
             t0 = time.perf_counter()
             self._check_graph()
-            chunk_rows = torch.empty((chunk,) + rows.shape, dtype=rows.dtype,
-                                     device=rows.device)
-            for j in range(chunk):
-                self._run_epoch(body)
-                chunk_rows[j].copy_(rows)
+            if self._streaming:
+                chunk_rows = self._stream_epochs(chunk, train_b, test_b,
+                                                 rows)
+            else:
+                chunk_rows = torch.empty((chunk,) + rows.shape,
+                                         dtype=rows.dtype, device=rows.device)
+                for j in range(chunk):
+                    self._run_epoch(body)
+                    chunk_rows[j].copy_(rows)
             # one device->host fetch per chunk
             cm = chunk_rows.cpu().numpy()
             train_cm, test_cm = cm[:, :nb_train], cm[:, nb_train:]

@@ -385,6 +385,15 @@ class _Replicas:
 
 
 def _check_family(task) -> None:
+    if task._streaming:
+        # the JAX sweep reads the streaming task's None batches and fails
+        # without saying why (colvarsfinder_tpu/parallel/ensemble.py:229)
+        raise Incompatible(
+            "replica sweeps and ensembles train on the task's batches "
+            "gathered on the device; a streaming task keeps its trajectory "
+            "on the host. Construct the task with streaming=False to sweep "
+            "it"
+        )
     if getattr(task, "fused_step", False):
         raise Incompatible(
             "replica-ensemble training does not support fused_step tasks "

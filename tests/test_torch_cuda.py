@@ -2,10 +2,13 @@
 versions, K1's and K2's backward differentiated twice, training epochs
 (transfer operator, generator, committor, the autoencoders) captured as CUDA
 graphs against the same epochs run eagerly, the exported CV programs
-running K1 and K2 against the live CV, and replica sweeps (a captured sweep
+running K1 and K2 against the live CV, replica sweeps (a captured sweep
 epoch against the eager one, K2 per sweep epoch independent of the replica
 count, the bf16 Gram form's vmap rule, bf16 sweeps keeping float32
-parameters). Every test here needs an NVIDIA card and ``nvcc``: it
+parameters), and the streaming layout (streamed runs against resident runs
+and captured streamed steps against eager ones, launches per streamed step,
+pinned host buffers, the copies on their own stream, K1 and K2 streamed).
+Every test here needs an NVIDIA card and ``nvcc``: it
 carries the ``cuda`` marker and skips where ``torch.cuda.is_available()`` is
 false. This file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch (``-s`` shows the graph-against-eager gaps):
@@ -419,16 +422,24 @@ CURVE_RTOL = {"loss": 2e-3, "eig": 5e-3}
 KINDS = ["fused", "plain", "k1", "precompute", "svd"]
 
 
-def _graph_task(path, kind, epochs, **kw):
-    """``fused``: FusedAlignmentLayer + fused_step (K2, K3, K4); ``plain``:
-    AlignmentLayer('quaternion'), no kernel; ``k1``: weighted
-    AlignmentLayer('cuda') + fused_step (K1, K3, K4); ``precompute``:
-    features computed once, then fused_step (K3, K4); ``svd``:
-    AlignmentLayer('svd') + fused_step (K3, K4)."""
+def _graph_frames():
     rng = np.random.default_rng(0)
     ref = rng.standard_normal((10, 3)).astype(np.float32)
     traj = (ref[None] + 0.3 * rng.standard_normal((G_FRAMES, 10, 3))
             ).astype(np.float32)
+    return rng, ref, traj
+
+
+def _graph_task(path, kind, epochs, frames=None, **kw):
+    """``fused``: FusedAlignmentLayer + fused_step (K2, K3, K4); ``plain``:
+    AlignmentLayer('quaternion'), no kernel; ``k1``: weighted
+    AlignmentLayer('cuda') + fused_step (K1, K3, K4); ``precompute``:
+    features computed once, then fused_step (K3, K4); ``svd``:
+    AlignmentLayer('svd') + fused_step (K3, K4). ``frames`` replaces the
+    trajectory (an array of its shape)."""
+    rng, ref, traj = _graph_frames()
+    if frames is not None:
+        traj = frames
     w = rng.uniform(0.5, 1.5, G_FRAMES).astype(np.float32)
     atoms = list(range(10))
     if kind == "fused":
@@ -1087,3 +1098,187 @@ def test_replica_adam_equals_capturable_torch_adam(dev, dtype):
             torch_opts[r].step()
     for r in range(R):
         assert torch.equal(stacked[r].detach(), solo[r].detach()), r
+
+
+# ---------------------------------------------------------------------------
+# the streaming layout
+def _stream_pair(tmp_path, kind, epochs=3, **kw):
+    resident = _graph_task(tmp_path / f"{kind}_r", kind, epochs, **kw)
+    streamed = _graph_task(tmp_path / f"{kind}_s", kind, epochs,
+                           streaming=True, **kw)
+    return resident, streamed
+
+
+@pytest.mark.parametrize("kind", ["fused", "plain"])
+def test_streamed_runs_equal_resident_runs(dev, tmp_path, kind):
+    """In-RAM frames keep the resident batches' order and gather: the
+    streamed run (each step a replay of its captured step) equals the
+    resident run (each epoch a replay) bit for bit, with the resident launch
+    schedule: K2 twice, K3 once and K4 once per fused train step."""
+    resident, streamed = _stream_pair(tmp_path, kind)
+    assert _train(streamed) == _train(resident) == _schedule(kind, 3)
+    np.testing.assert_array_equal(_rows(streamed), _rows(resident))
+    for a, b in zip(streamed.model.parameters(), resident.model.parameters()):
+        assert torch.equal(a, b)
+    assert sorted(streamed._stream_graphs) == ["test", "train"]
+    if kind == "fused":
+        assert streamed._stream_graphs["train"].launches == {
+            "kabsch_qcp": 0, "fused_align": 2, "stats_fwd": 1,
+            "stats_bwd": 1}
+        assert streamed._stream_graphs["test"].launches == {
+            "kabsch_qcp": 0, "fused_align": 2, "stats_fwd": 1,
+            "stats_bwd": 0}
+    # a second call replays the same step graphs
+    graphs = dict(streamed._stream_graphs)
+    assert _train(streamed, 2) == _train(resident, 2) == _schedule(kind, 2)
+    assert streamed._stream_graphs == graphs
+    np.testing.assert_array_equal(_rows(streamed), _rows(resident))
+
+
+def test_captured_streamed_steps_equal_eager_streamed_steps(dev, tmp_path):
+    graph = _graph_task(tmp_path / "graph", "fused", 4, streaming=True)
+    eager = _graph_task(tmp_path / "eager", "fused", 4, streaming=True)
+    eager._eager_on_card = True
+    assert _train(graph) == _train(eager) == _schedule("fused", 4)
+    assert not eager._stream_graphs and graph._stream_graphs
+    np.testing.assert_array_equal(_rows(graph), _rows(eager))
+    for a, b in zip(graph.model.parameters(), eager.model.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("depth,packed", [(0, True), (1, False), (2, True)])
+def test_streamed_settings_equal_bitwise_on_the_card(dev, tmp_path, depth,
+                                                     packed):
+    ref = _graph_task(tmp_path / "ref", "fused", 2, streaming=True)
+    _train(ref)
+    task = _graph_task(tmp_path / "run", "fused", 2, streaming=True)
+    task.stream_prefetch, task.stream_pack_transfers = depth, packed
+    task.stream_inflight = 0  # clamped to 1: a wait after every step
+    assert _train(task) == _schedule("fused", 2)
+    np.testing.assert_array_equal(_rows(task), _rows(ref))
+
+
+def test_streamed_host_buffers_are_pinned_and_copied_on_their_own_stream(
+        dev, tmp_path):
+    """The host ring is pinned, and a batch's copy to its device slot runs
+    on the copy stream: it completes while a long kernel holds the compute
+    stream."""
+    import time
+
+    task = _graph_task(tmp_path, "fused", 1, streaming=True)
+    _train(task)
+    ios = task._stream_io[1:]
+    assert all(b.is_pinned() for io in ios for bufs in io.host for b in bufs)
+    assert all(b.device.type == "cuda" for io in ios for b in io.inputs)
+    io, compute = ios[0], torch.cuda.current_stream()
+    assert io.copy_stream != compute
+    io.gather(0, task._stream_pack(task._prepare_data()[2][0]))
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9))  # about a second on the compute stream
+    io.transfer(0)
+    end = time.monotonic() + 0.5
+    while not io._slot_full[0].query() and time.monotonic() < end:
+        time.sleep(1e-3)
+    assert io._slot_full[0].query() and not compute.query()
+    torch.cuda.synchronize()
+    assert torch.equal(io.slots[0][0].cpu(), io.host[0][0])
+
+
+def test_streamed_memmap_and_wire_dtype_on_the_card(dev, tmp_path):
+    """A memmap's sorted gathers stay within the training bar of the in-RAM
+    run; a float16 wire equals the resident run on frames rounded to
+    float16 bit for bit."""
+    from numpy.lib.format import open_memmap
+
+    traj = _graph_frames()[2]
+    mm = open_memmap(str(tmp_path / "t.npy"), mode="w+", dtype=traj.dtype,
+                     shape=traj.shape)
+    mm[:] = traj
+    mm.flush()
+    del mm
+    ram = _graph_task(tmp_path / "ram", "fused", 3, streaming=True)
+    mapped = _graph_task(tmp_path / "mm", "fused", 3, streaming=True,
+                         frames=np.load(str(tmp_path / "t.npy"),
+                                        mmap_mode="r"))
+    assert mapped._sorted_gather(mapped._traj_np)
+    assert _train(mapped) == _train(ram) == _schedule("fused", 3)
+    for name, cols in (("loss", slice(0, 1)), ("eig", slice(3, None))):
+        np.testing.assert_allclose(mapped.train_loss[:, cols],
+                                   ram.train_loss[:, cols],
+                                   rtol=CURVE_RTOL[name])
+    wire = _graph_task(tmp_path / "wire", "fused", 2, streaming=True)
+    wire.stream_wire_dtype = "float16"
+    rounded = _graph_task(tmp_path / "rounded", "fused", 2,
+                          frames=traj.astype(np.float16).astype(np.float32))
+    assert _train(wire) == _train(rounded) == _schedule("fused", 2)
+    assert wire._stream_io[1].inputs[0].dtype == torch.float16
+    np.testing.assert_array_equal(_rows(wire), _rows(rounded))
+
+
+def test_streamed_k1_route(dev, tmp_path):
+    """AlignmentLayer(method='cuda') streamed: K1 twice per batch, the
+    resident run's schedule and curves."""
+    resident, streamed = _stream_pair(tmp_path, "k1", 2)
+    assert _train(streamed) == _train(resident) == _schedule("k1", 2)
+    got, want = _rows(streamed), _rows(resident)
+    print(f"k1 streamed vs resident: bitwise equal "
+          f"{np.array_equal(got, want)}")
+    for name, cols in (("loss", slice(0, 1)), ("eig", slice(3, None))):
+        np.testing.assert_allclose(got[:, cols], want[:, cols],
+                                   rtol=CURVE_RTOL[name])
+
+
+def test_chunked_apply_runs_k2_once_per_chunk(dev):
+    from colvarsfinder_tpu_torch.core.task import TrainingTask
+
+    rng = np.random.default_rng(0)
+    ref = rng.standard_normal((10, 3)).astype(np.float32)
+    x = (ref[None] + 0.3 * rng.standard_normal((2_500, 10, 3))).astype(
+        np.float32)
+    atoms = list(range(10))
+    layer = PreprocessingANN(FusedAlignmentLayer(ref, atoms),
+                             FeatureLayer([Feature("p", "position", atoms)])
+                             ).to(dev)
+    _cuda.reset_launch_counts()
+    got = TrainingTask._chunked_apply(layer, x, chunk=1_000)
+    torch.cuda.synchronize()
+    assert _cuda.launch_counts()["fused_align"] == 3
+    with torch.no_grad():
+        want = layer(torch.from_numpy(x).to(dev)).cpu().numpy()
+    assert isinstance(got, np.ndarray)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_a_streamed_failure_ends_the_threads_and_the_next_call_trains(
+        dev, tmp_path):
+    import threading
+
+    task = _graph_task(tmp_path, "fused", 2, streaming=True)
+    pack, calls = task._stream_pack, []
+
+    def boom(rows):
+        calls.append(1)
+        if len(calls) == 9:
+            raise RuntimeError("pack exploded")
+        return pack(rows)
+
+    task._stream_pack = boom
+    before = threading.active_count()
+    with pytest.raises(RuntimeError, match="pack exploded"):
+        task.train()
+    for _ in range(1000):
+        if threading.active_count() == before:
+            break
+        threading.Event().wait(0.01)
+    assert threading.active_count() == before
+    task._stream_pack = pack
+    assert _train(task) == _schedule("fused", 2)
+    assert np.isfinite(task.train_loss).all()
+
+
+def test_streaming_task_rejects_a_sweep_on_the_card(dev, tmp_path):
+    from colvarsfinder_tpu_torch.parallel import train_hyperparameter_sweep
+
+    task = _graph_task(tmp_path, "plain", 1, streaming=True)
+    with pytest.raises(ValueError, match="streaming"):
+        train_hyperparameter_sweep(task, {"learning_rate": [1e-3, 2e-3]})
