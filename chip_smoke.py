@@ -112,7 +112,19 @@ Phases (each raises on failure; nothing is caught):
    device busy share and the stage that sets the pace; peak device memory
    of (b) within 10% of the same run on the memmap's first 120,000 frames;
    pinned host memory; (b) with one and eight gather threads, prefetch 0
-   and a float16 wire. The memmap is deleted at the end of the phase.
+   and a float16 wire. The memmap is deleted at the end of the phase;
+11. the data mesh (``mesh=``) at one rank of an NCCL group (``file://``
+   init, ``make_data_mesh()``; NCCL puts no two ranks on one card): the
+   main path's task with the plain step through FusedAlignmentLayer (K2),
+   30 epochs captured, on the mesh against the same run without it, bit for
+   bit (metric rows, parameters, K2 launches); the same step streamed, with
+   and without the mesh, against that run, bit for bit; bench.py's R = 64
+   sweep through
+   K2 with ``mesh=`` against phase 9's (b), bit for bit. Beside each run:
+   samples/s with and without the mesh, NCCL's kernels and their device
+   microseconds per train step under torch.profiler (the gather of each
+   batch and the gradient sum of each train step, inside the replayed
+   graph), and graph replays per epoch.
 
 The second-to-last line lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -247,6 +259,9 @@ FAMILY_R, FAMILY_EPOCHS = 4, 3
 # memory there within 10% of the same run on the memmap's first N_FRAMES
 # frames
 STREAM_GIB, STREAM_TEST_RATIO, STREAM_MEMORY_RTOL = 4.0, 1e-4, 0.10
+# phase 11: the meshed runs' NCCL kernels (a W = 1 group runs NCCL's
+# one-rank reduce kernel, a W > 1 group its ncclDevKernel_*), found by name
+NCCL_KERNEL_NAMES = ("nccl", "onerank")
 # the fused run's settings tried besides the defaults (one call each)
 STREAM_VARIANTS = (("1 gather thread", dict(stream_transfer_workers=1)),
                    ("8 gather threads", dict(stream_transfer_workers=8)),
@@ -1786,7 +1801,7 @@ def phase_sweep(card, ref, traj_np, w_np, cvf, runs):
         torch.cuda.empty_cache()
         out["families"] = family_sweeps(card, ref, traj_np, traj_obj, cvf,
                                         tmp)
-    return out
+    return out, bres
 
 
 def bf16_hold(ares, bres, cres):
@@ -2276,6 +2291,230 @@ def phase_streaming(card, ref, traj_np, w_np, cvf, runs):
     return out
 
 
+def nccl_kernels(prof, steps):
+    """NCCL's kernels under torch.profiler: per name, launches and device
+    microseconds per train step."""
+    return {e.key: (e.count / steps, e.self_device_time_total / steps)
+            for e in device_activities(prof)
+            if any(n in e.key.lower() for n in NCCL_KERNEL_NAMES)}
+
+
+def same_sweeps(a, b):
+    """Two sweeps' results equal bit for bit: curves, parameters, optimizer
+    state."""
+    def state(r):
+        return [t for st in r.opt_state["state"].values()
+                for t in st.values()]
+
+    return all(np.array_equal(x.train_loss, y.train_loss)
+               and np.array_equal(x.test_loss, y.test_loss)
+               and all(torch.equal(x.model[k], y.model[k]) for k in x.model)
+               and all(torch.equal(s, t) for s, t in zip(state(x), state(y)))
+               for x, y in zip(a, b)) and len(a) == len(b)
+
+
+def phase_mesh(card, ref, traj_np, w_np, cvf, runs, sweep, sweep_b):
+    """Phase 11: the data mesh at one rank of an NCCL group. The plain step
+    through K2, resident and streamed, on the mesh against the same run
+    without it, bit for bit; bench.py's R = 64 sweep with mesh= against
+    phase 9's (b); samples/s, NCCL kernels per train step and graph replays
+    per epoch beside each."""
+    import torch.distributed as dist
+
+    from colvarsfinder_tpu_torch.ops import _cuda
+    from colvarsfinder_tpu_torch.parallel import (
+        ensemble,
+        make_data_mesh,
+        train_hyperparameter_sweep,
+    )
+
+    t_phase = time.perf_counter()
+    for r in runs.values():
+        r["task"].release_device_data()
+    ensemble.release_sweeps()
+    torch.cuda.empty_cache()
+    traj_obj = cvf.WeightedTrajectory(trajectory=traj_np, weights=w_np,
+                                      dt=DT, verbose=False)
+    init = os.path.join(tempfile.gettempdir(), f"cvf_mesh_{os.getpid()}")
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    launches = dict.fromkeys(_cuda.LAUNCHES, 0)
+    out = {}
+    try:
+        mesh = make_data_mesh()
+        log(f"  {mesh}: backend {dist.get_backend()}, NCCL "
+            f"{'.'.join(map(str, torch.cuda.nccl.version()))}, world size "
+            f"{dist.get_world_size()}")
+        with tempfile.TemporaryDirectory() as tmp:
+            res = {}
+            for label, kw in (("unmeshed", {}), ("meshed", dict(mesh=mesh)),
+                              ("unmeshed streamed", dict(streaming=True)),
+                              ("meshed streamed",
+                               dict(mesh=mesh, streaming=True))):
+                task = make_task(cvf, traj_obj, ref, f"{tmp}/{label}", False,
+                                 "fused", EPOCHS, **kw)
+                torch.cuda.synchronize()
+                _cuda.reset_launch_counts()
+                t0 = time.perf_counter()
+                task.train()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = _cuda.launch_counts()
+                if label.startswith("meshed"):
+                    for name, n in counts.items():
+                        launches[name] += n
+                if not np.isfinite(task.train_loss).all():
+                    raise AssertionError(f"{label}: non-finite metrics")
+                captured = (task._stream_graphs if "streamed" in label
+                            else task._graph)
+                if not captured:
+                    raise AssertionError(f"{label}: nothing captured")
+                nb_train = len(task._prepare_data()[2])
+                nb_test = len(task._prepare_data()[3])
+                sps = nb_train * BATCH / statistics.median(
+                    task.epoch_times[2:])
+                res[label] = dict(task=task, counts=counts, wall=wall,
+                                  sps=sps, rows=loss_rows(task),
+                                  params=[p.detach().clone()
+                                          for p in task.model.parameters()])
+            base = res["unmeshed"]
+            for label in ("meshed", "unmeshed streamed", "meshed streamed"):
+                r = res[label]
+                same = np.array_equal(r["rows"], base["rows"]) and all(
+                    torch.equal(a, b) for a, b in zip(r["params"],
+                                                      base["params"]))
+                log(f"  {label} vs unmeshed, plain step through K2, {EPOCHS} "
+                    f"epochs captured: every batch's metric row and every "
+                    f"final parameter bit for bit equal: {same}; launches "
+                    f"{r['counts']} vs {base['counts']}")
+                if not same:
+                    gap = float(np.max(np.abs(r["rows"] - base["rows"])))
+                    raise AssertionError(f"{label} differs from the unmeshed "
+                                         f"run (max gap {gap:.3e})")
+                if r["counts"] != base["counts"]:
+                    raise AssertionError(f"{label}: launches {r['counts']}")
+            # two more epochs of each under torch.profiler (replays)
+            for label, r in res.items():
+                task = r["task"]
+                task.num_epochs = 2
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    task.train()
+                    torch.cuda.synchronize()
+                    prof_wall = time.perf_counter() - t0
+                steps = 2 * nb_train
+                nccl = nccl_kernels(prof, steps)
+                # with and without the mesh: the same layout's unmeshed run
+                twin = res[label.replace("meshed", "unmeshed")
+                           if label.startswith("meshed") else label]
+                replays = sum(e.count for e in prof.key_averages()
+                              if e.key == "cudaGraphLaunch")
+                acts = device_activities(prof)
+                busy = sum(e.self_device_time_total for e in acts) * 1e-6
+                row = dict(
+                    samples_per_s=r["sps"],
+                    vs_unmeshed=r["sps"] / twin["sps"],
+                    wall_s=r["wall"],
+                    nccl_kernels_per_train_step=sum(
+                        n for n, _ in nccl.values()),
+                    nccl_us_per_train_step=sum(us for _, us in nccl.values()),
+                    nccl_kernels={k[:90]: v for k, v in nccl.items()},
+                    device_ms_per_train_step=busy * 1e3 / steps,
+                    graph_replays_per_epoch=replays / 2,
+                    launches=r["counts"])
+                out[label] = row
+                log(f"  {label}: {r['sps']:,.0f} samples/s "
+                    f"({100 * row['vs_unmeshed']:.1f}% of the same layout "
+                    f"unmeshed), "
+                    f"{EPOCHS} epochs in {r['wall']:.2f} s; profiled 2 "
+                    f"epochs ({prof_wall * 1e3:.1f} ms): NCCL "
+                    f"{row['nccl_kernels_per_train_step']:.2f} kernels and "
+                    f"{row['nccl_us_per_train_step']:.2f} device us per "
+                    f"train step (test batches' gathers included), device "
+                    f"{row['device_ms_per_train_step']:.4f} ms per train "
+                    f"step, {row['graph_replays_per_epoch']:g} graph replays "
+                    f"per epoch ({card})")
+                for name, (n, us) in nccl.items():
+                    log(f"    {us:8.2f} us/step {n:5.2f}x/step  {name[:80]}")
+                meshed = label.startswith("meshed")
+                # the gather of each batch and the gradient sum of each
+                # train step: at least one NCCL kernel per train step
+                if meshed and row["nccl_kernels_per_train_step"] < 1:
+                    raise AssertionError(f"{label}: no NCCL kernel in the "
+                                         f"replayed steps: {nccl}")
+                if not meshed and nccl:
+                    raise AssertionError(f"unmeshed run launched {nccl}")
+                want_replays = (nb_train + nb_test if "streamed" in label
+                                else 1)
+                if row["graph_replays_per_epoch"] != want_replays:
+                    raise AssertionError(
+                        f"{label}: {row['graph_replays_per_epoch']} graph "
+                        f"replays per epoch, expected {want_replays}")
+                task.release_device_data()
+            del res
+
+            # bench.py's R = 64 sweep through K2 on the mesh: every replica
+            # on this rank, then gathered; against phase 9's (b)
+            task = make_task(cvf, traj_obj, ref, f"{tmp}/sweep", False,
+                             "fused", SWEEP_EPOCHS)
+            grid = sweep_grid(SWEEP_R)
+            models = [cvf.EigenFunctions(list(DIMS), K, seed=r)
+                      for r in range(SWEEP_R)]
+            kw = dict(models=models, mesh=mesh)
+            t0 = time.perf_counter()
+            train_hyperparameter_sweep(task, grid, **kw)
+            first_s = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = train_hyperparameter_sweep(task, grid, **kw)
+            wall = time.perf_counter() - t0
+            counts = _cuda.launch_counts()
+            for name, n in counts.items():
+                launches[name] += n
+            same = same_sweeps(got, sweep_b)
+            nb_train = len(task._prepare_data()[2])
+            samples = SWEEP_R * SWEEP_EPOCHS * nb_train * BATCH
+            b = sweep["b fused f32"]
+            row = dict(aggregate_samples_per_s=samples / wall,
+                       device_window_samples_per_s=(
+                           samples / ensemble.last_run_seconds),
+                       unmeshed_aggregate_samples_per_s=(
+                           b["aggregate_samples_per_s"]),
+                       first_call_s=first_s, second_call_s=wall,
+                       k2_launches=counts["fused_align"], bitwise=same)
+            row["vs_unmeshed"] = (row["aggregate_samples_per_s"]
+                                  / row["unmeshed_aggregate_samples_per_s"])
+            out["sweep R=64 meshed"] = row
+            log(f"  R={SWEEP_R} sweep through K2 on the mesh: first call "
+                f"{first_s:.3f} s, second {wall:.4f} s -> "
+                f"{row['aggregate_samples_per_s']:,.0f} samples/s aggregate "
+                f"(device window {row['device_window_samples_per_s']:,.0f})"
+                f", phase 9's (b) unmeshed "
+                f"{row['unmeshed_aggregate_samples_per_s']:,.0f} "
+                f"({100 * row['vs_unmeshed']:.1f}%); K2 "
+                f"{counts['fused_align']} in the second call; every "
+                f"replica's curves, parameters and Adam state bit for bit "
+                f"equal to phase 9's (b): {same} ({card})")
+            if not same:
+                raise AssertionError("the meshed R=64 sweep differs from "
+                                     "phase 9's (b)")
+            if counts["fused_align"] != b["k2_launches"]:
+                raise AssertionError(f"meshed sweep K2 {counts}, phase 9's "
+                                     f"{b['k2_launches']}")
+            ensemble.release_sweeps()
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(init):
+            os.remove(init)
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 11 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2317,20 +2556,25 @@ def main():
     log("phase 8: export and deploy")
     export = phase_export(card, runs, traj_np, cvf)
     log("phase 9: the replica sweep")
-    sweep = phase_sweep(card, ref, traj_np, w_np, cvf, runs)
+    sweep, sweep_b = phase_sweep(card, ref, traj_np, w_np, cvf, runs)
     log("phase 10: streaming from host memory")
     streaming = phase_streaming(card, ref, traj_np, w_np, cvf, runs)
+    log("phase 11: the data mesh, one rank of an NCCL group")
+    mesh = phase_mesh(card, ref, traj_np, w_np, cvf, runs, sweep, sweep_b)
     launches = {"kabsch_qcp": runs["k1"]["counts"]["kabsch_qcp"]}
     for name in ("fused_align", "stats_fwd", "stats_bwd"):
         launches[name] = runs["fused"]["counts"][name]
     # K2 on the main path and on the sweep's (run b's second call)
     launches["fused_align"] += sweep["b fused f32"]["k2_launches"]
-    # and every streamed call of phase 10
+    # and every streamed call of phase 10, and phase 11's meshed runs
     for name, n in streaming["launches"].items():
+        launches[name] += n
+    for name, n in mesh["launches"].items():
         launches[name] += n
     log(f"K2 launches: main path {runs['fused']['counts']['fused_align']}, "
         f"sweep {sweep['b fused f32']['k2_launches']}, streamed "
-        f"{streaming['launches']['fused_align']}; K3 streamed "
+        f"{streaming['launches']['fused_align']}, meshed "
+        f"{mesh['launches']['fused_align']}; K3 streamed "
         f"{streaming['launches']['stats_fwd']}, K4 streamed "
         f"{streaming['launches']['stats_bwd']}")
     rows = []
@@ -2354,6 +2598,7 @@ def main():
         "export": export,
         "sweep": sweep,
         "streaming": streaming,
+        "mesh": mesh,
     }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

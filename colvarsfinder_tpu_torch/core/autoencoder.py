@@ -21,6 +21,8 @@ need it (:meth:`.task.TrainingTask._stream_epochs`).
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -72,6 +74,12 @@ class AutoEncoderTask(TrainingTask):
     ):
         if not isinstance(model, AutoEncoder):
             raise TypeError("model must be an object of the class AutoEncoder")
+        if kwargs.get("shard_trajectory"):
+            # as the JAX package warns (autoencoder.py:179-190)
+            warnings.warn(
+                "AutoEncoderTask ignores shard_trajectory: features are "
+                "precomputed and gathered into batches once, and each rank "
+                "of a mesh keeps its share of every batch")
         super().__init__(
             traj_obj, as_pp_layer(pp_layer), model, model_path,
             learning_rate, load_model_filename, save_model_every_step,
@@ -139,6 +147,7 @@ class AutoEncoderTask(TrainingTask):
                                                self.batch_size)]
         test_b = test_idx[self._make_batches(np.arange(len(test_idx)),
                                              self.batch_size)]
+        train_b, test_b = self._rank_batches(train_b, test_b)
         rows = self._metric_rows(len(train_b) + len(test_b), 1)
         if self._streaming:
             self._prepared = (None, None, train_b, test_b, rows)
@@ -174,5 +183,5 @@ class AutoEncoderTask(TrainingTask):
 
     def _batch_metrics(self, X, w):
         """Loss and the metric row [loss] of one batch."""
-        loss = weighted_mse_loss(self.model, X, w)
+        loss = weighted_mse_loss(self.model, X, w, gather=self._gather)
         return loss, loss.detach()[None]

@@ -214,6 +214,7 @@ class CommittorTask(TrainingTask):
                     "(test_ratio/batch_size ate them all) — enlarge the "
                     "region, lower test_ratio, or add boundary samples"
                 )
+        train_b, test_b = self._rank_batches(train_b, test_b)
         self._resolve_gram(train_b, test_b)
         rows = self._metric_rows(len(train_b) + len(test_b),
                                  len(self.loss_names))
@@ -291,9 +292,10 @@ class CommittorTask(TrainingTask):
         if self._gram:
             H, M, w, a, b = batch
             loss, parts = committor_loss(self.model, None, H, w, a, b, hyper,
-                                         pp_gram=M)
+                                         pp_gram=M, gather=self._gather)
         else:
             X, w, a, b = batch
             loss, parts = committor_loss(self.model, self._pp_for_loss, X, w,
-                                         a, b, hyper, self._diag_coeff)
+                                         a, b, hyper, self._diag_coeff,
+                                         gather=self._gather)
         return loss, torch.stack([loss, *parts]).detach()

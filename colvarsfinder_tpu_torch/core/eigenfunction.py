@@ -133,7 +133,7 @@ class EigenFunctionTask(TrainingTask):
       the fused stats kernels; it needs the 'tanh' activation, float32 and
       a model whose kernel blocks fit in shared memory
       (:func:`..ops.fused_eigen.fwd_launch_shape`,
-      :func:`..ops.fused_eigen.bwd_launch_shape`);
+      :func:`..ops.fused_eigen.bwd_launch_shape`), and no mesh;
     * ``precompute_features=True`` (transfer operator only) computes the
       features once for the whole trajectory;
     * ``streaming``: keep the trajectory on the host and stream the batches
@@ -204,6 +204,12 @@ class EigenFunctionTask(TrainingTask):
         if gram_pp and lag_idx > 0:
             raise ValueError(
                 "gram_pp applies to the generator loss only (lag_tau == 0)"
+            )
+        if fused_step and kwargs.get("mesh") is not None:
+            # as the JAX package asserts (eigenfunction.py:551-553)
+            raise ValueError(
+                "fused_step runs on a single device; train with the default "
+                "step on a mesh"
             )
         super().__init__(
             traj_obj, as_pp_layer(pp_layer), model, model_path,
@@ -313,8 +319,9 @@ class EigenFunctionTask(TrainingTask):
         if self._prepared is not None:
             return self._prepared
         train_idx, test_idx = self._lagged_split(self.lag_idx)
-        train_b = self._make_batches(train_idx, self.batch_size)
-        test_b = self._make_batches(test_idx, self.batch_size)
+        train_b, test_b = self._rank_batches(
+            self._make_batches(train_idx, self.batch_size),
+            self._make_batches(test_idx, self.batch_size))
         self._resolve_gram(train_b, test_b)
         rows = self._metric_rows(len(train_b) + len(test_b),
                                  len(self.loss_names) + self.k)
@@ -442,7 +449,7 @@ class EigenFunctionTask(TrainingTask):
             loss, aux = eigen_loss(
                 self.model, self._pp_for_loss, X, w, X_l, w_l,
                 beta=self._beta, diag_coeff=self._diag_coeff, pp_gram=M,
-                **common,
+                gather=self._gather, **common,
             )
             eig_vals, non_pen, pen, cvec = (
                 aux.eig_vals, aux.non_penalty_loss, aux.penalty, aux.cvec

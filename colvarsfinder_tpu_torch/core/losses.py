@@ -27,6 +27,13 @@ the feature batch ``H = r(x)`` and the Dirichlet integrand
 :math:`\sum_d c_d (\partial_d f_i)^2` is the quadratic form
 :math:`G_i M G_i^T` in the model-only input Jacobian :math:`G`.
 
+On a data mesh (:mod:`..parallel.mesh`) each rank holds its share of the
+batch: every loss takes ``gather``, which maps this rank's per-sample
+tensors to the whole batch's (:func:`..parallel.collectives.gather_rows`),
+and applies it where the per-sample values are reduced over the batch, so
+that every rank computes the loss of the whole batch. Without a mesh it is
+:func:`no_gather`.
+
 Two quirks of the reference are preserved on purpose, as in the JAX
 package: (a) the transfer operator's variational objective has its
 numerator indexed by the unsorted head and its denominator by the sorted
@@ -42,6 +49,7 @@ import torch
 
 __all__ = [
     "EigenAux",
+    "no_gather",
     "committor_loss",
     "input_jacobian",
     "eigen_loss",
@@ -54,23 +62,31 @@ __all__ = [
 ]
 
 
-def weighted_mse_loss(model, X: torch.Tensor,
-                      weight: torch.Tensor) -> torch.Tensor:
+def no_gather(*tensors):
+    """The per-sample tensors of an unsharded batch: the tensors
+    themselves."""
+    return tensors
+
+
+def weighted_mse_loss(model, X: torch.Tensor, weight: torch.Tensor,
+                      gather: Callable = no_gather) -> torch.Tensor:
     r"""Weighted reconstruction loss of an autoencoder on a feature batch
     ``X`` [B, d] (``colvarsfinder_tpu/core/losses.py:62-70``):
     :math:`\sum_l w_l \|f(x_l) - x_l\|^2 / \sum_l w_l`."""
-    out = model(X)
-    return (weight * ((out - X) ** 2).sum(dim=1)).sum() / weight.sum()
+    sq, weight = gather(((model(X) - X) ** 2).sum(dim=1), weight)
+    return (weight * sq).sum() / weight.sum()
 
 
 def weighted_mse_lagged_loss(forward_ae: Callable, pp_layer: Callable,
                              X: torch.Tensor, X_lagged: torch.Tensor,
-                             weight: torch.Tensor) -> torch.Tensor:
+                             weight: torch.Tensor,
+                             gather: Callable = no_gather) -> torch.Tensor:
     r"""Time-lagged reconstruction loss (``losses.py:73-86``):
     :math:`\sum_l w_l \|f(r(x_l)) - r(x_{l+j})\|^2 / \sum_l w_l`."""
     out = forward_ae(pp_layer(X))
     target = pp_layer(X_lagged)
-    return (weight * ((out - target) ** 2).sum(dim=1)).sum() / weight.sum()
+    sq, weight = gather(((out - target) ** 2).sum(dim=1), weight)
+    return (weight * sq).sum() / weight.sum()
 
 
 class EigenAux(NamedTuple):
@@ -243,6 +259,7 @@ def eigen_loss(
     sort_eigvals: bool,
     pp_gram: torch.Tensor | None = None,
     jac: Callable = _input_jacobian,
+    gather: Callable = no_gather,
 ):
     r"""Eigenfunction loss plus ``alpha`` times the orthonormality penalty
     (``colvarsfinder_tpu/core/losses.py:120-285``). Returns
@@ -257,7 +274,8 @@ def eigen_loss(
     not used, and the integrand is the quadratic form in the model-only
     Jacobian. Transfer operator (``lag_idx > 0``): lagged
     square-difference quotients. ``jac`` takes the per-sample input
-    gradients (:func:`input_jacobian` inside a replica map).
+    gradients (:func:`input_jacobian` inside a replica map); ``gather``
+    the whole batch's head outputs, integrands and weights.
     """
     if pp_gram is not None:
         if lag_idx != 0:
@@ -269,6 +287,12 @@ def eigen_loss(
         grad_sq = _grad_sq(J, diag_coeff)
     else:
         y = model(pp_layer(X))  # [B, k]
+        y_lagged = model(pp_layer(X_lagged))
+    if lag_idx == 0:
+        y, grad_sq, weight = gather(y, grad_sq, weight)
+    else:
+        y, y_lagged, weight, weight_lagged = gather(y, y_lagged, weight,
+                                                    weight_lagged)
     tot_weight = weight.sum()
     means, variances = _weighted_moments(y, weight, tot_weight)
 
@@ -276,7 +300,6 @@ def eigen_loss(
         dirichlet = (grad_sq * weight[:, None]).sum(dim=0)  # [k]
         quotients = dirichlet / (tot_weight * beta) / variances
     else:
-        y_lagged = model(pp_layer(X_lagged))
         tot_weight_lagged = weight_lagged.sum()
         _, variances_lagged = _weighted_moments(
             y_lagged, weight_lagged, tot_weight_lagged
@@ -316,7 +339,8 @@ def eigen_loss(
 
 
 def committor_loss(model, pp_layer, X, weight, mask_a, mask_b, hyper,
-                   diag_coeff=None, pp_gram=None, jac=_input_jacobian):
+                   diag_coeff=None, pp_gram=None, jac=_input_jacobian,
+                   gather=no_gather):
     r"""Variational committor loss (``colvarsfinder_tpu/core/losses.py:
     410-483``): with :math:`q = \sigma(g(r(x)))`,
 
@@ -339,11 +363,12 @@ def committor_loss(model, pp_layer, X, weight, mask_a, mask_b, hyper,
             with :math:`G = \partial z/\partial h`.
         jac: the per-sample input gradients (:func:`input_jacobian`
             inside a replica map).
+        gather: the whole batch's per-sample values (:func:`no_gather`
+            without a mesh).
 
     Returns ``(loss, (dirichlet, penalty_a, penalty_b))``, all scalars.
     """
     alpha, beta = hyper
-    tot_weight = weight.sum()
     if pp_gram is not None:
         z, G = jac(model, X, 1)
         q = torch.sigmoid(z[:, 0])
@@ -354,6 +379,9 @@ def committor_loss(model, pp_layer, X, weight, mask_a, mask_b, hyper,
         q, J = jac(lambda Xb: torch.sigmoid(model(pp_layer(Xb))), X, 1)
         q = q[:, 0]
         grad_sq_vec = _grad_sq(J, diag_coeff)[:, 0]
+    q, grad_sq_vec, weight, mask_a, mask_b = gather(q, grad_sq_vec, weight,
+                                                    mask_a, mask_b)
+    tot_weight = weight.sum()
     dirichlet = (grad_sq_vec * weight).sum() / (beta * tot_weight)
     pen_a = (weight * mask_a * q**2).sum() / tot_weight
     pen_b = (weight * mask_b * (1.0 - q) ** 2).sum() / tot_weight
@@ -364,29 +392,31 @@ def committor_loss(model, pp_layer, X, weight, mask_a, mask_b, hyper,
 # ---------------------------------------------------------------------------
 # the regularized autoencoder's encoder constraints and regularizer
 def enc_grad_loss(encoder, pp_layer, X, weight, k: int,
-                  jac: Callable = _input_jacobian) -> torch.Tensor:
+                  jac: Callable = _input_jacobian,
+                  gather: Callable = no_gather) -> torch.Tensor:
     r"""Weighted mean squared norm of the encoder's gradients by the
     features ``Y = r(X)``, not by the raw coordinates, summed over its k
     outputs (``losses.py:293-303``)."""
     _, J = jac(encoder, pp_layer(X), k)
-    grad_sq = _grad_sq(J, None)  # [B, k]
+    grad_sq, weight = gather(_grad_sq(J, None), weight)  # [B, k], [B]
     return ((grad_sq * weight[:, None]).sum(dim=0) / weight.sum()).sum()
 
 
-def enc_norm_loss(encoder, pp_layer, X, weight, k: int) -> torch.Tensor:
+def enc_norm_loss(encoder, pp_layer, X, weight, k: int,
+                  gather: Callable = no_gather) -> torch.Tensor:
     r"""Penalty on the weighted variances of the encoder's outputs,
     :math:`\sum_i (\mathrm{var}_w\,e_i - 1)^2` (``losses.py:306-312``)."""
-    enc = encoder(pp_layer(X))
+    enc, weight = gather(encoder(pp_layer(X)), weight)
     _, variances = _weighted_moments(enc, weight, weight.sum())
     return ((variances - 1.0) ** 2).sum()
 
 
-def enc_orthogonality_loss(encoder, pp_layer, X, weight,
-                           k: int) -> torch.Tensor:
+def enc_orthogonality_loss(encoder, pp_layer, X, weight, k: int,
+                           gather: Callable = no_gather) -> torch.Tensor:
     """Penalty on the pairwise weighted covariances of the encoder's
     outputs (``losses.py:315-321``)."""
+    enc, weight = gather(encoder(pp_layer(X)), weight)
     tot_weight = weight.sum()
-    enc = encoder(pp_layer(X))
     means, _ = _weighted_moments(enc, weight, tot_weight)
     return _pairwise_cov_penalty(enc, weight, tot_weight, means, k)
 
@@ -394,7 +424,8 @@ def enc_orthogonality_loss(encoder, pp_layer, X, weight,
 def reg_eigen_loss(model, pp_layer, X, weight, X_lagged, weight_lagged, *,
                    num_reg: int, eig_w, beta: float, diag_coeff, lag_idx: int,
                    traj_dt: float, pp_gram: torch.Tensor | None = None,
-                   jac: Callable = _input_jacobian):
+                   jac: Callable = _input_jacobian,
+                   gather: Callable = no_gather):
     r"""The eigenfunction regularizer of a regularized autoencoder: the
     eigenfunction objective of :func:`eigen_loss` on its regularizer heads
     ``model.forward_reg`` (``losses.py:324-407``), always sorted by
@@ -405,6 +436,6 @@ def reg_eigen_loss(model, pp_layer, X, weight, X_lagged, weight_lagged, *,
         model.forward_reg, pp_layer, X, weight, X_lagged, weight_lagged,
         k=num_reg, alpha=0.0, eig_w=eig_w, beta=beta, diag_coeff=diag_coeff,
         lag_idx=lag_idx, traj_dt=traj_dt, sort_eigvals=True, pp_gram=pp_gram,
-        jac=jac,
+        jac=jac, gather=gather,
     )
     return aux.eig_vals, aux.non_penalty_loss, aux.penalty, aux.cvec

@@ -36,9 +36,15 @@ With ``streaming=True`` the trajectory stays on the host and each batch
 need it (:meth:`.task.TrainingTask._stream_epochs`; JAX
 ``regautoencoder.py:308, 857-887``), the lagged frames of equal lags once;
 the generator regularizer takes the vjp path there, and
-``precompute_features`` runs over chunks on the card into host numpy. The
-JAX package's ``prebatch`` and ``shard_trajectory`` layouts are not ported
-(ROADMAP.md queue 1, item 15b).
+``precompute_features`` runs over chunks on the card into host numpy.
+
+On a mesh every term gathers its per-sample values (reconstruction errors,
+encoder outputs and gradients, head outputs and integrands) where it
+reduces them over the batch (:meth:`.task.TrainingTask._gather`), and a
+frozen encoder's gradients are zeroed after their sum over the ranks. The
+JAX package's ``prebatch`` layout is not ported (ROADMAP.md queue 1, item
+18); ``shard_trajectory`` is the meshed layout itself
+(:mod:`.task`).
 """
 
 from __future__ import annotations
@@ -296,8 +302,9 @@ class RegAutoEncoderTask(TrainingTask):
             return self._prepared
         train_idx, test_idx = self._lagged_split(max(self.lag_idx,
                                                      self.lag_ae_idx))
-        train_b = self._make_batches(train_idx, self.batch_size)
-        test_b = self._make_batches(test_idx, self.batch_size)
+        train_b, test_b = self._rank_batches(
+            self._make_batches(train_idx, self.batch_size),
+            self._make_batches(test_idx, self.batch_size))
         self._resolve_gram(train_b, test_b)
         rows = self._metric_rows(len(train_b) + len(test_b),
                                  len(self.loss_names) + self.num_reg)
@@ -458,7 +465,7 @@ class RegAutoEncoderTask(TrainingTask):
         """Loss and the metric row [loss, ae, g0, g1, eig_vals, e0, e1, e2,
         cvec] of one batch (``regautoencoder.py:68-140``)."""
         ae_on, eig_on, eta_on = self._gates()
-        model, k, ident = self.model, self.k, _IDENTITY
+        model, k, ident, gather = self.model, self.k, _IDENTITY, self._gather
         if self._gram:
             X, Y_ae, M, w = batch
             Y = X
@@ -475,13 +482,15 @@ class RegAutoEncoderTask(TrainingTask):
         ae = e0 = e1 = e2 = g0 = g1 = zero
         if ae_on:
             ae = weighted_mse_lagged_loss(model.forward_ae, ident, Y,
-                                          Y if Y_ae is None else Y_ae, w)
+                                          Y if Y_ae is None else Y_ae, w,
+                                          gather=gather)
         if eta_on[0]:
-            e0 = enc_grad_loss(model.encoder, ident, Y, w, k)
+            e0 = enc_grad_loss(model.encoder, ident, Y, w, k, gather=gather)
         if eta_on[1]:
-            e1 = enc_norm_loss(model.encoder, ident, Y, w, k)
+            e1 = enc_norm_loss(model.encoder, ident, Y, w, k, gather=gather)
         if eta_on[2]:
-            e2 = enc_orthogonality_loss(model.encoder, ident, Y, w, k)
+            e2 = enc_orthogonality_loss(model.encoder, ident, Y, w, k,
+                                        gather=gather)
         if eig_on:
             # the head weights as fills of Python floats, which a captured
             # step bakes in as the graph key's values do (a copy from the
@@ -490,7 +499,7 @@ class RegAutoEncoderTask(TrainingTask):
                                  for v in self._eig_w])
             common = dict(num_reg=self.num_reg, eig_w=eig_w,
                           beta=self._beta, lag_idx=self.lag_idx,
-                          traj_dt=self.traj_dt)
+                          traj_dt=self.traj_dt, gather=gather)
             if self._gram:
                 out = reg_eigen_loss(model, None, Y, w, None, None,
                                      diag_coeff=None, pp_gram=M, **common)

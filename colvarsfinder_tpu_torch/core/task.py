@@ -32,8 +32,22 @@ the first train step and the first test batch of a call without valid
 graphs run eagerly and are captured, and every later one is a replay of its
 graph.
 
-Not ported yet: the device mesh, ``shard_trajectory`` and the
-``unroll``/``prebatch`` switches (ROADMAP.md queue 1, item 15b).
+With ``mesh=`` (:func:`..parallel.mesh.make_data_mesh`, one process per
+card) every rank keeps its contiguous share of each batch, train and test,
+resident or streamed; the losses gather their per-sample tensors in batch
+order (:func:`..parallel.collectives.gather_rows`), so that every rank
+computes the loss of the whole batch, and each train step sums the
+parameter gradients over the ranks once, before the optimizer step
+(:func:`..parallel.collectives.all_reduce_grads`). Both collectives sit
+inside the captured epoch, and at one rank the meshed run is bit for bit
+the unmeshed one. Rank 0 broadcasts the model's parameters (and a drawn
+seed) at construction, and only rank 0 writes checkpoints, TensorBoard
+scalars, plots and progress. ``shard_trajectory`` is accepted as in the
+JAX package; the port gathers the batches once, so each rank's prepared
+slices already hold 1/W of them, and the two layouts coincide.
+
+Not ported: the ``unroll``/``prebatch`` switches (ROADMAP.md queue 1,
+item 18).
 """
 
 from __future__ import annotations
@@ -49,6 +63,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import checkpoint
 from ..config import default_dtype, numerics_key, resolve_device
@@ -56,6 +71,8 @@ from ..export import export_colvar
 from ..logging_utils import MetricsWriter, profile_trace
 from ..ops import _cuda
 from ..ops.features import Identity
+from ..parallel.collectives import all_reduce_grads, gather_rows
+from ..parallel.mesh import mesh_coords, replicate, shard_batches
 from .streaming import GatherPool, StreamIO
 
 __all__ = ["TrainingTask", "capture_epoch", "train_test_split"]
@@ -161,7 +178,11 @@ class TrainingTask(ABC):
         plot_frequency: epochs between plot callbacks (0 disables)
         verbose: print more information
         debug_mode: additionally snapshot a state dict per save epoch
-        seed: seed of the train/test split (None draws one at construction)
+        mesh: a 1-axis ``DeviceMesh`` (:func:`..parallel.mesh.make_data_mesh`)
+            over which each batch is sharded, one process per rank; its
+            device type must be the task's
+        seed: seed of the train/test split (None draws one at construction,
+            rank 0's on a mesh)
         split_indices: optional (train_idx, test_idx) overriding the split
         export_cv: also write the compiled CV programs
             (``cv_exported.bin``, ``cv_grad_exported.bin``), each traced
@@ -169,6 +190,9 @@ class TrainingTask(ABC):
         tensorboard: log scalars when tensorboardX is installed
         profile_dir: if set, wrap ``train()`` in a ``torch.profiler`` trace
             written to this directory (:func:`..logging_utils.profile_trace`)
+        shard_trajectory: with a mesh, the JAX package's frame-sharded
+            trajectory; here the same layout as without it (see the module
+            docstring), and no effect without a mesh
         progress_interval: print progress at least every N epochs
 
     The tasks take ``streaming=`` (True, False, or None for the size rule
@@ -217,11 +241,6 @@ class TrainingTask(ABC):
     STREAM_PACK_TRANSFERS = True
     stream_timing = False
     _streaming = False
-    #: the device mesh and the frame-sharded trajectory (ROADMAP item 15b):
-    #: neither exists in the port; :meth:`_resolve_streaming` reads them as
-    #: the JAX package does
-    mesh = None
-    shard_trajectory = False
 
     def __init__(
         self,
@@ -243,14 +262,35 @@ class TrainingTask(ABC):
         verbose: bool = True,
         debug_mode: bool = True,
         *,
+        mesh=None,
         seed: int | None = 0,
         split_indices=None,
         export_cv: bool = True,
         tensorboard: bool = True,
         profile_dir: Optional[str] = None,
+        shard_trajectory: bool = False,
         progress_interval: int = 0,
     ):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.shard_trajectory = bool(shard_trajectory)
+        self._rank, self._ranks, self._mesh_key = 0, 1, ()
+        if mesh is not None:
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"the mesh is over '{mesh.device_type}' devices and the "
+                    f"task trains on '{self.device.type}'")
+            self._rank, self._ranks, group = mesh_coords(mesh)
+            self._mesh_key = (self._ranks, dist.get_backend(group))
+            if seed is None:
+                # one split on every rank: rank 0's draw
+                drawn = [int(np.random.randint(0, 2**31 - 1))]
+                dist.broadcast_object_list(
+                    drawn, src=dist.get_global_rank(group, 0), group=group,
+                    device=self.device)
+                seed = drawn[0]
+            verbose = verbose and self._rank == 0
+            tensorboard = tensorboard and self._rank == 0
         self.traj_obj = traj_obj
         self.preprocessing_layer = pp_layer.to(self.device)
         self.learning_rate = learning_rate
@@ -259,6 +299,8 @@ class TrainingTask(ABC):
         self.test_ratio = test_ratio
         self.k = k
         self.model = model.to(self.device)
+        if mesh is not None:
+            replicate(self.model, mesh)
         self.load_model_filename = load_model_filename
         self.save_model_every_step = save_model_every_step
         self.model_path = model_path
@@ -362,13 +404,39 @@ class TrainingTask(ABC):
         nb = len(indices) // bs
         return np.asarray(indices[: nb * bs], dtype=np.int64).reshape(nb, bs)
 
+    def _rank_batches(self, train_b: np.ndarray, test_b: np.ndarray):
+        """This rank's contiguous share of every train and test batch
+        (:func:`..parallel.mesh.shard_batches`); without a mesh the batches
+        themselves. The batch sizes are checked after :meth:`_make_batches`
+        clamps them to the split: a test split smaller than ``batch_size``
+        makes one batch of its own size, which must divide over the ranks
+        as well (the JAX package checks ``batch_size`` alone, ``ADVICE.md``
+        on ``colvarsfinder_tpu/core/task.py:474``)."""
+        if self.mesh is None:
+            return train_b, test_b
+        for name, b in (("train", train_b), ("test", test_b)):
+            if b.shape[1] % self._ranks:
+                raise ValueError(
+                    f"the {name} batches hold {b.shape[1]} samples "
+                    f"(batch_size={self.batch_size}, clamped to the {name} "
+                    f"split), which do not divide over the mesh's "
+                    f"{self._ranks} ranks; choose batch_size and test_ratio "
+                    f"so that every batch is a multiple of {self._ranks}")
+        return shard_batches(train_b, self.mesh), shard_batches(test_b,
+                                                                self.mesh)
+
     def _print_train_banner(self, train_b: np.ndarray, test_b: np.ndarray):
+        """The split and batches of ``train()``; ``train_b`` and ``test_b``
+        are this rank's shares."""
         if not self.verbose:
             return
         nb_tr, bs_tr = train_b.shape
         nb_te, bs_te = test_b.shape
+        bs_tr, bs_te = bs_tr * self._ranks, bs_te * self._ranks
+        on = (f"{self.device} x {self._ranks} ranks"
+              if self.mesh is not None else f"{self.device}")
         print(
-            f"\n=== training: {self.num_epochs} epochs on {self.device} ===\n"
+            f"\n=== training: {self.num_epochs} epochs on {on} ===\n"
             f"  train split: {nb_tr * bs_tr} samples -> {nb_tr} batches of "
             f"{bs_tr} ({nb_tr * self.num_epochs} steps total)\n"
             f"  test split:  {nb_te * bs_te} samples -> {nb_te} batches of "
@@ -472,10 +540,10 @@ class TrainingTask(ABC):
         (``colvarsfinder_tpu/core/eigenfunction.py:197``). Values compare
         by value: the optimizer's hyperparameters (lr among them), the
         numerics (:func:`..config.numerics_key`: matmul precision, default
-        dtype, compute dtype, bfloat16 style) and the task's own
-        (:meth:`_graph_static`). Objects compare by identity: the prepared
-        data, the optimizer, its parameters and state tensors and the
-        task's own; ``held`` holds them for the graph."""
+        dtype, compute dtype, bfloat16 style), the mesh's size and backend
+        and the task's own (:meth:`_graph_static`). Objects compare by
+        identity: the prepared data, the optimizer, its parameters and state
+        tensors and the task's own; ``held`` holds them for the graph."""
         values, objects = self._graph_static()
         opt = self.optimizer
         held = [self._prepared, self._stream_io, opt, *objects]
@@ -484,7 +552,8 @@ class TrainingTask(ABC):
                  if torch.is_tensor(t)]
         hyper = tuple((k, repr(v)) for g in opt.param_groups
                       for k, v in sorted(g.items()) if k != "params")
-        key = (hyper, numerics_key(), *values, tuple(map(id, held)))
+        key = (hyper, numerics_key(), self._mesh_key, *values,
+               tuple(map(id, held)))
         return key, held
 
     def _drop_graph(self) -> None:
@@ -541,7 +610,9 @@ class TrainingTask(ABC):
         and, where the CV has a spec, ``cv_numpy_spec.json``,
         ``cv_numpy.npz``, ``cv_native.bin`` and ``scripted_cv_cpu.pt``, and
         with :attr:`export_cv` the programs ``cv_exported.bin`` and
-        ``cv_grad_exported.bin``."""
+        ``cv_grad_exported.bin``. On a mesh only rank 0 writes."""
+        if self._rank != 0:
+            return
         if self.verbose:
             print(f"\n\nEpoch={epoch}:")
         if self.debug_mode:
@@ -565,7 +636,10 @@ class TrainingTask(ABC):
         self.save_training_state(epoch, f"{out_dir}/train_state.pt")
 
     def save_training_state(self, epoch: int, filename: str) -> None:
-        """Checkpoint model parameters, optimizer state and epoch."""
+        """Checkpoint model parameters, optimizer state and epoch (on a
+        mesh, rank 0 only)."""
+        if self._rank != 0:
+            return
         checkpoint.save_training_state(filename, self.model, self.optimizer,
                                        epoch)
 
@@ -616,15 +690,27 @@ class TrainingTask(ABC):
         """Called in each train step between the backward and the optimizer
         step, where a task may change the gradients in place."""
 
+    def _gather(self, *tensors):
+        """The per-sample tensors of the whole batch from this rank's share
+        of them (:func:`..parallel.collectives.gather_rows`; without a mesh
+        the tensors themselves): every loss gathers where it reduces over
+        the batch."""
+        if self.mesh is None:
+            return tensors
+        return gather_rows(self.mesh, *tensors)
+
     def _train_step(self, batch):
         """One train step on ``batch`` (forward, ``zero_grad``, backward,
-        optimizer step); returns its metric row. With ``set_to_none=True``
-        the backward allocates the gradients (in a capture, from the graph's
-        pool) where zeroing them in place would cost a memset per
-        parameter."""
+        on a mesh the sum of the gradients over the ranks, optimizer step);
+        returns its metric row. With ``set_to_none=True`` the backward
+        allocates the gradients (in a capture, from the graph's pool) where
+        zeroing them in place would cost a memset per parameter."""
         loss, metrics = self._batch_metrics(*batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if self.mesh is not None:
+            all_reduce_grads([p for g in self.optimizer.param_groups
+                              for p in g["params"]], self.mesh)
         self._before_step()
         self.optimizer.step()
         return metrics
@@ -650,8 +736,7 @@ class TrainingTask(ABC):
         would exceed :attr:`STREAMING_AUTO_LIMIT_BYTES` and neither a mesh
         nor ``shard_trajectory`` is set. ``streaming=True`` with
         ``shard_trajectory`` raises ``ValueError`` (the JAX package
-        asserts), and with a mesh ``NotImplementedError``: the port has
-        neither before ROADMAP item 15b."""
+        asserts); with a mesh each rank streams its share of every batch."""
         if streaming is None:
             streaming = (device_bytes > self.STREAMING_AUTO_LIMIT_BYTES
                          and self.mesh is None and not self.shard_trajectory)
@@ -661,9 +746,6 @@ class TrainingTask(ABC):
                 "streaming=True keeps the trajectory on the host; it cannot "
                 "combine with shard_trajectory (device-resident frame "
                 "sharding)")
-        if streaming and self.mesh is not None:
-            raise NotImplementedError(
-                "streaming over a device mesh is ROADMAP item 15b")
         return streaming
 
     @staticmethod
@@ -723,6 +805,11 @@ class TrainingTask(ABC):
             if name not in ("float16", "bfloat16"):
                 raise ValueError("stream_wire_dtype must be None, 'float16' "
                                  f"or 'bfloat16', got {wire!r}")
+            if self.mesh is not None:
+                # the JAX package's wire needs its packed transfers, which a
+                # mesh turns off (colvarsfinder_tpu/core/task.py:636-644)
+                raise ValueError("stream_wire_dtype does not combine with a "
+                                 "mesh")
             wire = getattr(torch, name)
         return depth, workers if depth else 0, packed, wire
 
@@ -1015,7 +1102,7 @@ class TrainingTask(ABC):
 
             if (self.plot_frequency > 0
                     and e % self.plot_frequency == self.plot_frequency - 1
-                    and self.plot_class is not None):
+                    and self.plot_class is not None and self._rank == 0):
                 self._plot(e)
 
         shape = (0, n_metrics)

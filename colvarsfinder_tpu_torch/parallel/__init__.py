@@ -1,5 +1,6 @@
-"""Replica sweeps of the PyTorch port (``parallel/ensemble.py``); the
-device mesh (``parallel/mesh.py``) is not ported yet (ROADMAP item 15b)."""
+"""Replica sweeps (``parallel/ensemble.py``) and the data mesh over
+``torch.distributed`` (``parallel/mesh.py``, with the collectives of a
+meshed train step in ``parallel/collectives.py``) of the PyTorch port."""
 
 from . import ensemble
 from .ensemble import (
@@ -14,6 +15,7 @@ from .ensemble import (
     train_hyperparameter_sweep,
     train_replica_ensemble,
 )
+from .mesh import make_data_mesh, replicate, shard_batches, shard_frames
 
 __all__ = [
     "ExploreResult",
@@ -22,6 +24,10 @@ __all__ = [
     "adopt_sweep_result",
     "explore_then_finetune",
     "last_run_seconds",
+    "make_data_mesh",
+    "replicate",
+    "shard_batches",
+    "shard_frames",
     "sweep_committor_checks",
     "sweep_vamp_scores",
     "train_architecture_ensemble",

@@ -33,8 +33,16 @@ Usage::
     adopt_sweep_result(task, results[best])
     task.train()  # continues from the adopted replica
 
-Not ported: ``mesh=`` (ensemble parallelism over devices, ROADMAP item 15b)
-and the JAX package's relayout of wide generator sweeps
+With ``mesh=`` (:func:`.mesh.make_data_mesh`, one process per rank) the
+replica axis is sharded over the ranks, as the JAX package's
+``_shard_replica_axis`` does (``colvarsfinder_tpu/parallel/ensemble.py:
+169-191``): rank r trains replicas ``[r R/W, (r+1) R/W)`` with the same
+captured sweep epoch, with no collective during training, and then every
+rank gathers every replica's result (metric rows, parameters, optimizer
+state) in replica order. A task that itself trains on a mesh cannot be a
+replica: its batches are one rank's share.
+
+Not ported: the JAX package's relayout of wide generator sweeps
 (``_maybe_relayout_for_width``): the port has one batch layout.
 """
 
@@ -51,14 +59,15 @@ from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.func import functional_call, vmap
 
 from .. import config as _cfg
 from ..config import default_dtype, numerics_key
-from ..core.task import capture_epoch
 from ..logging_utils import losses_to_dataframe
 from ..ops import _cuda
+from .mesh import mesh_coords
 
 __all__ = [
     "ExploreResult",
@@ -91,12 +100,27 @@ class Incompatible(ValueError):
     """Replicas that cannot run as one ensemble."""
 
 
-def _check_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (replicas sharded over devices) is not ported yet: "
-            "ROADMAP item 15b (parallel/mesh.py); pass mesh=None"
-        )
+def _rank_share(mesh, R: int) -> slice:
+    """The replicas of this rank of ``mesh`` among R; raises
+    :class:`Incompatible` when R does not divide over the ranks (the JAX
+    package's ``_shard_replica_axis`` asserts)."""
+    rank, size, _ = mesh_coords(mesh)
+    if R % size:
+        raise Incompatible(
+            f"{R} replicas do not divide over the mesh's {size} ranks; the "
+            "replica count (or chunk_size) must be a multiple of the mesh "
+            "size")
+    share = R // size
+    return slice(rank * share, (rank + 1) * share)
+
+
+def _gather_replicas(mesh, flat: torch.Tensor) -> list:
+    """Every rank's ``flat`` (one buffer on the mesh's device), in rank
+    order, through one all-gather."""
+    _, size, group = mesh_coords(mesh)
+    every = [torch.empty_like(flat) for _ in range(size)]
+    dist.all_gather(every, flat, group=group)
+    return every
 
 
 @contextlib.contextmanager
@@ -353,12 +377,17 @@ class _Replicas:
                 *self.opt.state_tensors()]
         return tuple(map(id, held)), held
 
-    def run(self, epochs: int, eager: bool = False):
+    def run(self, epochs: int, eager: bool = False, mesh=None):
         """``epochs`` epochs; returns the host copies of the metric rows
         [epochs, R, nb, width], the parameters and the optimizer state
         (:meth:`_ReplicaOptimizer.state_tensors`), fetched in one
-        transfer, and sets :data:`last_run_seconds`."""
+        transfer, and sets :data:`last_run_seconds`. With ``mesh``, every
+        rank's replicas, gathered in one flat buffer and concatenated along
+        the replica axis in rank order: [epochs, W R, nb, width] etc."""
         global last_run_seconds
+        # imported here: the task module imports this package (the mesh)
+        from ..core.task import capture_epoch
+
         all_rows = torch.empty((epochs,) + tuple(self.rows.shape),
                                dtype=self.rows.dtype, device=self.device)
         t0 = time.perf_counter()
@@ -374,17 +403,29 @@ class _Replicas:
         tensors = [all_rows, *self.params, *self.opt.state_tensors()]
         with torch.no_grad():  # step counts are exact in either dtype
             flat = torch.cat([t.reshape(-1).to(all_rows.dtype)
-                              for t in tensors]).cpu()  # one fetch
+                              for t in tensors])
+            every = [flat] if mesh is None else _gather_replicas(mesh, flat)
+            every = torch.stack(every).cpu()  # one fetch
         last_run_seconds = time.perf_counter() - t0
         out, off = [], 0
-        for t in tensors:
-            out.append(flat[off:off + t.numel()].view(t.shape).to(t.dtype))
+        for i, t in enumerate(tensors):
+            parts = every[:, off:off + t.numel()].view(-1, *t.shape)
+            # the replica axis: 1 of the rows, 0 of the rest
+            out.append(torch.cat(list(parts), dim=int(i == 0)).to(t.dtype))
             off += t.numel()
         n = len(self.params)
         return out[0].numpy(), out[1:1 + n], out[1 + n:]
 
 
 def _check_family(task) -> None:
+    if task.mesh is not None:
+        # the JAX package refuses it with an ensemble mesh
+        # (ensemble.py:433-436,991-994); without one its replicas would
+        # train on one rank's share of each batch here
+        raise Incompatible(
+            "a replica sweep or ensemble takes tasks without their own data "
+            "mesh; pass the mesh to the sweep instead (ensemble "
+            "parallelism)")
     if task._streaming:
         # the JAX sweep reads the streaming task's None batches and fails
         # without saying why (colvarsfinder_tpu/parallel/ensemble.py:229)
@@ -433,9 +474,10 @@ def train_replica_ensemble(tasks: Sequence, mesh=None,
     head order), without checkpoint or plot hooks.
 
     Args:
-        tasks: the R tasks.
-        mesh: only None (ensemble parallelism over devices is ROADMAP item
-            15b).
+        tasks: the R tasks (on a mesh, the same R tasks on every rank).
+        mesh: a :func:`.mesh.make_data_mesh` mesh over which the replicas
+            are sharded: rank r trains tasks ``[r R/W, (r+1) R/W)`` and every
+            rank ends with every task trained; R must divide by its size.
         compute_dtype / bf16_style: the numerics of this call
             (:func:`..config.set_compute_dtype`,
             :func:`..config.set_bf16_style`), restored after it.
@@ -443,10 +485,11 @@ def train_replica_ensemble(tasks: Sequence, mesh=None,
     Raises:
         Incompatible: tasks that cannot run as one ensemble.
     """
-    _check_mesh(mesh)
     tasks = list(tasks)
     if not tasks:
         raise ValueError("no tasks")
+    mine = (slice(0, len(tasks)) if mesh is None
+            else _rank_share(mesh, len(tasks)))
     t0 = tasks[0]
     if any(type(t) is not type(t0) for t in tasks):
         raise Incompatible(
@@ -474,15 +517,16 @@ def train_replica_ensemble(tasks: Sequence, mesh=None,
                     f"replica {r} has parameter or batch shapes "
                     f"{_replica_shapes(t)} vs replica 0's {shapes0}; all "
                     "replicas must have one architecture and data shape")
-        reps = _Replicas(tasks, len(tasks))
-        each = [t._hyper() for t in tasks]
+        local = tasks[mine]
+        reps = _Replicas(local, len(local))
+        each = [t._hyper() for t in local]
         hypers = {name: torch.stack([h[name] for h in each])
                   for name in reps.hyper}
-        reps.load([t.model for t in tasks], hypers,
-                  [float(t.learning_rate) for t in tasks])
-        for r, t in enumerate(tasks):
+        reps.load([t.model for t in local], hypers,
+                  [float(t.learning_rate) for t in local])
+        for r, t in enumerate(local):
             reps.opt.load_replica(r, t.optimizer.state_dict())
-        rows, params, state = reps.run(t0.num_epochs)
+        rows, params, state = reps.run(t0.num_epochs, mesh=mesh)
     per_epoch = last_run_seconds / t0.num_epochs
     for r, t in enumerate(tasks):
         t._drop_graph()
@@ -628,7 +672,12 @@ def train_hyperparameter_sweep(
         chunk_size: at most this many replicas per program; the grid runs
             in chunks of this width, the last padded with its final entry,
             all replaying one captured epoch.
-        mesh: only None (ROADMAP item 15b).
+        mesh: a :func:`.mesh.make_data_mesh` mesh over which each
+            program's replicas are sharded (rank r trains replicas ``[r
+            R/W, (r+1) R/W)`` of it, no collective during training) and
+            whose ranks then all gather every result; the program's width
+            (R, or ``chunk_size`` below R) must divide by its size, and the
+            task must have no mesh of its own.
         compute_dtype / bf16_style: the numerics of this call, restored
             after it (:func:`..config.set_compute_dtype`,
             :func:`..config.set_bf16_style`).
@@ -639,7 +688,6 @@ def train_hyperparameter_sweep(
         sweep leaves on it what ``train()`` would too: its prepared
         batches, if it had none.
     """
-    _check_mesh(mesh)
     if not grid:
         raise ValueError("grid must name at least one hyperparameter")
     lengths = {name: len(vals) for name, vals in grid.items()}
@@ -650,21 +698,25 @@ def train_hyperparameter_sweep(
     if models is not None and len(models) != R:
         raise ValueError(f"models must have length {R}")
     _check_family(task)
+    cs = R if chunk_size is None else int(chunk_size)
+    if cs <= 0:
+        raise ValueError("chunk_size must be positive")
+    width = min(cs, R)
+    mine = slice(0, width) if mesh is None else _rank_share(mesh, width)
     with _numerics(compute_dtype, bf16_style):
-        cs = R if chunk_size is None else int(chunk_size)
-        if cs <= 0:
-            raise ValueError("chunk_size must be positive")
         out = []
         for lo in range(0, R, cs):
             hi = min(lo + cs, R)
-            idx = list(range(lo, hi)) + [hi - 1] * (min(cs, R) - (hi - lo))
+            idx = list(range(lo, hi)) + [hi - 1] * (width - (hi - lo))
             sub = {k: [list(v)[i] for i in idx] for k, v in grid.items()}
             subm = None if models is None else [models[i] for i in idx]
-            out += _sweep(task, sub, subm, _eager)[:hi - lo]
+            out += _sweep(task, sub, subm, _eager, mesh, mine)[:hi - lo]
         return out
 
 
-def _sweep(task, grid: dict, models, eager: bool) -> list:
+def _sweep(task, grid: dict, models, eager: bool, mesh, mine: slice) -> list:
+    """The R results of ``grid``; this rank trains the replicas ``mine``
+    of them (all of them without a mesh)."""
     R = len(next(iter(grid.values())))
     task._prepare_data()
     hypers = _sweep_values(task, grid, R)
@@ -675,9 +727,11 @@ def _sweep(task, grid: dict, models, eager: bool) -> list:
         if [(n, p.shape) for n, p in m.named_parameters()] != shapes:
             raise ValueError("models must share the task model's "
                              "architecture")
-    reps = _sweep_replicas(task, R)
-    reps.load(models or [task.model] * R, hypers, lrs)
-    rows, params, state = reps.run(task.num_epochs, eager)
+    local = range(R)[mine]
+    reps = _sweep_replicas(task, len(local))
+    reps.load((models or [task.model] * R)[mine],
+              {name: v[mine] for name, v in hypers.items()}, lrs[mine])
+    rows, params, state = reps.run(task.num_epochs, eager, mesh)
     template = task.optimizer.state_dict()
     n = len(task.loss_names)
     results = []
@@ -960,8 +1014,10 @@ def train_architecture_ensemble(
     than one runs as one :func:`train_replica_ensemble`, and single tasks,
     or groups the ensemble refuses (different data shapes, say), train
     alone with ``task.train()`` (``ensemble.py:1211-1291``). Every task
-    ends as ``train()`` would leave it. Returns the tasks."""
-    _check_mesh(mesh)
+    ends as ``train()`` would leave it. ``mesh`` shards the ensembles of the
+    groups whose size divides over its ranks; the others run unsharded, as
+    in the JAX package (``ensemble.py:1275``). Returns the tasks."""
+    size = None if mesh is None else mesh_coords(mesh)[1]
     with _numerics(compute_dtype, bf16_style):
         groups: dict = {}
         for i, t in enumerate(tasks):
@@ -974,8 +1030,9 @@ def train_architecture_ensemble(
                     print(f"[arch-sweep] {label}: solo train()")
                 group[0].train()
                 continue
+            gmesh = mesh if size and len(group) % size == 0 else None
             try:
-                train_replica_ensemble(group)
+                train_replica_ensemble(group, mesh=gmesh)
                 if verbose:
                     print(f"[arch-sweep] {label}: one replica ensemble")
             except Incompatible as err:

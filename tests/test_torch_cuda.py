@@ -7,8 +7,10 @@ epoch against the eager one, K2 per sweep epoch independent of the replica
 count, the bf16 Gram form's vmap rule, bf16 sweeps keeping float32
 parameters), and the streaming layout (streamed runs against resident runs
 and captured streamed steps against eager ones, launches per streamed step,
-pinned host buffers, the copies on their own stream, K1 and K2 streamed).
-Every test here needs an NVIDIA card and ``nvcc``: it
+pinned host buffers, the copies on their own stream, K1 and K2 streamed),
+and the data mesh at one rank of an NCCL group (captured meshed epochs and
+streamed steps against eager and unmeshed ones, NCCL's kernel in each
+replayed step, a meshed sweep). Every test here needs an NVIDIA card and ``nvcc``: it
 carries the ``cuda`` marker and skips where ``torch.cuda.is_available()`` is
 false. This file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch (``-s`` shows the graph-against-eager gaps):
@@ -1282,3 +1284,83 @@ def test_streaming_task_rejects_a_sweep_on_the_card(dev, tmp_path):
     task = _graph_task(tmp_path, "plain", 1, streaming=True)
     with pytest.raises(ValueError, match="streaming"):
         train_hyperparameter_sweep(task, {"learning_rate": [1e-3, 2e-3]})
+
+
+# ---------------------------------------------------------------------------
+# the data mesh at one rank of an NCCL group (parallel/mesh.py)
+@pytest.fixture
+def nccl_mesh(dev, tmp_path):
+    """A mesh over a one-rank NCCL group, destroyed after the test. One
+    card holds one rank: NCCL puts no two ranks on one device."""
+    import torch.distributed as dist
+
+    from colvarsfinder_tpu_torch.parallel import make_data_mesh
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/init",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_data_mesh()
+        assert mesh.device_type == "cuda" and mesh.size() == 1
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_meshed_epochs_equal_eager_and_unmeshed_epochs(dev, nccl_mesh,
+                                                       tmp_path, streaming):
+    """The plain step through K2 on a mesh of one rank: the captured epochs
+    (or streamed steps), which hold the gather and the gradient sum, equal
+    the eager meshed ones and the unmeshed run bit for bit, with the same
+    K2 launches."""
+    kw = dict(fused_step=False, streaming=streaming)
+    plain = _graph_task(tmp_path / "plain", "fused", 4, **kw)
+    graph = _graph_task(tmp_path / "graph", "fused", 4, mesh=nccl_mesh, **kw)
+    eager = _graph_task(tmp_path / "eager", "fused", 4, mesh=nccl_mesh, **kw)
+    eager._eager_on_card = True
+    want = dict.fromkeys(_cuda.LAUNCHES, 0)
+    want["fused_align"] = 2 * 4 * (G_TRAIN + G_TEST)
+    assert _train(plain) == _train(graph) == _train(eager) == want
+    captured = graph._stream_graphs if streaming else graph._graph
+    assert captured and not eager._graph and not eager._stream_graphs
+    for other in (graph, eager):
+        np.testing.assert_array_equal(_rows(other), _rows(plain))
+        for a, b in zip(other.model.parameters(), plain.model.parameters()):
+            assert torch.equal(a, b)
+
+
+def test_meshed_replay_runs_nccl_kernels(dev, nccl_mesh, tmp_path):
+    """A replayed meshed epoch launches NCCL's reduce kernel for the gather
+    of each batch and the gradient sum of each train step; the unmeshed
+    epoch none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    counts = {}
+    for label, mesh in (("plain", None), ("mesh", nccl_mesh)):
+        task = _graph_task(tmp_path / label, "fused", 2, fused_step=False,
+                           mesh=mesh)
+        _train(task)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _train(task, 1)
+        counts[label] = sum(
+            e.count for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and ("nccl" in e.key.lower() or "onerank" in e.key.lower()))
+    assert counts == {"plain": 0, "mesh": 2 * G_TRAIN + G_TEST}
+
+
+def test_meshed_sweep_equals_unmeshed_sweep(dev, nccl_mesh, tmp_path):
+    from colvarsfinder_tpu_torch.parallel import (
+        ensemble,
+        train_hyperparameter_sweep,
+    )
+
+    task = _sweep_task(tmp_path, "transfer")
+    ensemble.release_sweeps()
+    plain = train_hyperparameter_sweep(task, _grid(4))
+    meshed = train_hyperparameter_sweep(task, _grid(4), mesh=nccl_mesh)
+    for a, b in zip(plain, meshed):
+        assert np.array_equal(a.train_loss, b.train_loss)
+        assert np.array_equal(a.test_loss, b.test_loss)
+        assert all(torch.equal(a.model[n], b.model[n]) for n in a.model)
+    ensemble.release_sweeps()

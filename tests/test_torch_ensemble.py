@@ -8,6 +8,8 @@ train_architecture_ensemble, the replica optimizer against torch.optim and
 optax, and the functional input Jacobian. Small shapes: 2-D toy data or
 four-atom frames, [2, 10, 1]-sized heads, three epochs."""
 
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -348,11 +350,15 @@ def _refusal_cases(tmp_path):
            lambda: train_hyperparameter_sweep(
                fam.port_task(), {"alpha": [1.0, 2.0],
                                  "learning_rate": [0.1]}))
-    yield ("mesh", NotImplementedError, "15b",
+    # a mesh of two ranks (what the sweeps read of one): one replica does
+    # not divide over it, refused before any collective
+    two = types.SimpleNamespace(get_local_rank=lambda: 0, size=lambda: 2,
+                                get_group=lambda: None)
+    yield ("mesh", Incompatible, "do not divide",
            lambda: train_hyperparameter_sweep(fam.port_task(),
-                                              {"alpha": [1.0]}, mesh=1))
-    yield ("ensemble mesh", NotImplementedError, "15b",
-           lambda: train_replica_ensemble([fam.port_task()], mesh=1))
+                                              {"alpha": [1.0]}, mesh=two))
+    yield ("ensemble mesh", Incompatible, "do not divide",
+           lambda: train_replica_ensemble([fam.port_task()], mesh=two))
 
 
 REFUSALS = ["fused_step", "mixed types", "static config", "gate toggle",

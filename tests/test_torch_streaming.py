@@ -357,10 +357,9 @@ def test_weighted_trajectory_keeps_a_memmap(tmp_path):
 @pytest.mark.parametrize("mesh", [False, True])
 @pytest.mark.parametrize("shard", [False, True])
 def test_resolve_streaming_decides_as_jax(streaming, mesh, shard):
-    """Over sizes at and around the limit: the port decides as JAX does;
-    where JAX asserts (shard_trajectory) the port raises ValueError, and
-    where JAX streams over a mesh the port raises NotImplementedError (no
-    mesh before ROADMAP item 15b)."""
+    """Over sizes at and around the limit: the port decides as JAX does,
+    over a mesh too; where JAX asserts (shard_trajectory) the port raises
+    ValueError."""
     limit = TrainingTask.STREAMING_AUTO_LIMIT_BYTES
     assert limit == JaxTrainingTask.STREAMING_AUTO_LIMIT_BYTES == 8 << 30
     for nbytes in (0, limit, limit + 1, 100 * limit):
@@ -374,10 +373,6 @@ def test_resolve_streaming_decides_as_jax(streaming, mesh, shard):
                                                       nbytes)
         except AssertionError:
             with pytest.raises(ValueError, match="shard_trajectory"):
-                TrainingTask._resolve_streaming(fakes[1], streaming, nbytes)
-            continue
-        if want and mesh:
-            with pytest.raises(NotImplementedError, match="15b"):
                 TrainingTask._resolve_streaming(fakes[1], streaming, nbytes)
             continue
         assert TrainingTask._resolve_streaming(fakes[1], streaming,
