@@ -124,7 +124,24 @@ Phases (each raises on failure; nothing is caught):
    samples/s with and without the mesh, NCCL's kernels and their device
    microseconds per train step under torch.profiler (the gather of each
    batch and the gradient sum of each train step, inside the replayed
-   graph), and graph replays per epoch.
+   graph), and graph replays per epoch;
+12. the samplers (``utils/sampling.py``, ``utils/enhanced.py``), each report
+   or deposition block one captured CUDA graph, at the examples' sizes:
+   (a) overdamped Euler–Maruyama on TripleWellCircle (beta 8, 200,000
+   steps, reports every 100) at 1 and 1,024 chains, (b) BAOAB at 1,024
+   chains, (c) well-tempered metadynamics of 64 walkers along phase 4's
+   trained fused CV (K2 in every step, forward and backward) on flattened
+   frames in a harmonic well around phase 4's reference (4,000 steps, hills
+   every 50), held over its first two deposition blocks against the same
+   walkers through the CV rebuilt with AlignmentLayer('quaternion') within
+   twice the gap of two plain versions ('svd' against 'quaternion'), (d) a
+   steered pull and 16 umbrella windows along the triple well's angle
+   (30,000 steps each), then MBAR, (e) replica exchange (betas 8, 4, 2,
+   0.8, 200,000 steps). Each run against its eager twin bit for bit over
+   its first blocks; chain-steps/s over the call's wall time (and without
+   its output files), the fixed seconds per call and the steady time per
+   block, and under torch.profiler the device time, activities and graph
+   replays per block and the busy share; K2 launches per step for (c).
 
 The second-to-last line lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -262,6 +279,43 @@ STREAM_GIB, STREAM_TEST_RATIO, STREAM_MEMORY_RTOL = 4.0, 1e-4, 0.10
 # phase 11: the meshed runs' NCCL kernels (a W = 1 group runs NCCL's
 # one-rank reduce kernel, a W > 1 group its ncclDevKernel_*), found by name
 NCCL_KERNEL_NAMES = ("nccl", "onerank")
+# phase 12: the samplers at the examples' sizes. (a) overdamped EM and (b)
+# BAOAB on TripleWellCircle at beta 8, 200,000 steps
+# (examples/enhanced_sampling.py:40-52,69-80), reports every 100 steps,
+# one chain and 1,024; (c) well-tempered metadynamics of 64 walkers along
+# phase 4's trained fused CV on flattened frames in a harmonic well around
+# phase 4's reference, at examples/adaptive_umbrella.py:63-78's settings
+# (hills every 50 steps of 0.005, height 0.6, bias factor 8, width 0.35 CV
+# standard deviations, colvarsfinder_tpu/workflow.py:280,303), its 40,000
+# steps cut to 4,000: through K2's backward (the plain alignment's recorded
+# vjp) a step runs ~2,500 kernels; (d) a steered
+# pull and 16 umbrella windows seeded by it along the triple well's angle,
+# 30,000 steps each (examples/adaptive_umbrella.py:114-138), then MBAR;
+# (e) replica exchange at examples/replica_exchange.py:65-70's ladder
+SAMPLER_BETA, SAMPLER_STEPS, SAMPLER_REPORT, SAMPLER_DT = 8.0, 200_000, 100, 1e-3
+SAMPLER_CHAINS, BAOAB_FRICTION = 1024, 1.0
+METAD_WALKERS, METAD_STEPS, METAD_DEPOSIT, METAD_DT = 64, 4_000, 50, 5e-3
+METAD_BETA, METAD_KAPPA = 1.0, 1.0 / 0.09
+METAD_HEIGHT, METAD_WIDTH_STD, METAD_GAMMA = 0.6, 0.35, 8.0
+UMB_WINDOWS, UMB_STEPS, UMB_PRE, UMB_DT = 16, 30_000, 3_000, 3e-3
+UMB_REPORT, PULL_REPORT, UMB_RANGE = 20, 50, (-2.5, 2.5)
+REMD_BETAS, REMD_STEPS, REMD_DT = (8.0, 4.0, 2.0, 0.8), 200_000, 4e-3
+REMD_REPORT, REMD_EXCHANGE = 20, 200
+# blocks of each captured run held bit for bit against its eager twin; blocks
+# of each short (timed, then profiled) call
+TWIN_BLOCKS, PROFILE_BLOCKS, METAD_PROFILE_BLOCKS = 3, 4, 2
+# (c) is profiled over two deposition blocks of 10 steps (a block of 50
+# steps is ~127,000 kernel events), its device time scaled to 50 steps
+METAD_PROFILE_DEPOSIT = 10
+# chains whose files are written again to time a call's output files
+WRITE_CHAINS = 128
+# (c) against the same walkers through the CV rebuilt with the quaternion
+# layer over the first METAD_HELD_BLOCKS deposition blocks, relative to
+# each array's largest magnitude: within twice the gap of two plain
+# versions of the run (the svd layer against the quaternion layer, measured
+# in the same call), and never below METAD_RTOL_FLOOR (8 float32 ulps)
+METAD_HELD_BLOCKS, METAD_RTOL_FLOOR = 2, 1e-6
+
 # the fused run's settings tried besides the defaults (one call each)
 STREAM_VARIANTS = (("1 gather thread", dict(stream_transfer_workers=1)),
                    ("8 gather threads", dict(stream_transfer_workers=8)),
@@ -2515,6 +2569,403 @@ def phase_mesh(card, ref, traj_np, w_np, cvf, runs, sweep, sweep_b):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the samplers on the card
+
+
+class TripleWellCircle:
+    """examples/enhanced_sampling.py:40-52: three wells on the unit circle,
+    radial confinement."""
+
+    dim = 2
+
+    def __init__(self, beta=SAMPLER_BETA):
+        self.beta = beta
+
+    def V(self, x):
+        theta = torch.atan2(x[1], x[0])
+        r = torch.sqrt(x[0] ** 2 + x[1] ** 2)
+        return 1.0 + torch.cos(3.0 * theta) + 8.0 * (r - 1.0) ** 2
+
+
+class DoubleWell2D:
+    """examples/replica_exchange.py:44-52: barrier 1 at x1 = 0."""
+
+    dim, beta = 2, REMD_BETAS[0]
+
+    def V(self, x):
+        return (x[0] ** 2 - 1.0) ** 2 + 4.0 * x[1] ** 2
+
+
+class HarmonicWell:
+    """``0.5 kappa |x - ref|^2`` on flattened frames around phase 4's
+    reference (its frames scatter by 0.3 around it: kappa = 1 / 0.09 at
+    beta 1)."""
+
+    def __init__(self, ref):
+        self.ref = torch.as_tensor(ref.reshape(-1), device="cuda")
+        self.dim, self.beta = self.ref.numel(), METAD_BETA
+
+    def V(self, x):
+        return 0.5 * METAD_KAPPA * torch.sum((x - self.ref.to(x.device)) ** 2)
+
+
+def angle_cv(x):
+    """The triple well's angle, a CV of the chain batch [c, 2]."""
+    return torch.atan2(x[:, 1], x[:, 0])
+
+
+def result_arrays(res):
+    """Every array of a sampler's result, by name."""
+    if isinstance(res, tuple):
+        return {str(i): a for i, a in enumerate(res)}
+    return {k: v for k, v in vars(res).items() if isinstance(v, np.ndarray)}
+
+
+def sampler_run(label, call, blocks, chains, steps, prefix, card,
+                short_over, twin_blocks=TWIN_BLOCKS, twin_over=None,
+                writer=None, short_blocks=PROFILE_BLOCKS, profile_over=None,
+                profile_scale=1):
+    """Phase 12's measurements of one sampler configuration.
+
+    ``call(**over)`` runs the sampler on the card; ``prefix(res, m)`` gives
+    the arrays of its first ``m`` report (or deposition) blocks. The call is
+    timed: chain-steps/s over its wall time, and over the wall time less
+    the seconds ``writer(res)`` gives for the output files. Its eager twin
+    (``_eager_blocks``, with ``twin_over``) must equal the first
+    ``twin_blocks`` blocks bit for bit. A short call with ``short_over``
+    (``short_blocks`` blocks), timed, splits the call's time into a fixed
+    part and a steady time per block. A call with ``profile_over`` (by
+    default the short call) under torch.profiler gives the device time and
+    activities per block (a profiled block times ``profile_scale``: a
+    profiled call of shorter blocks keeps the trace small) and the graph
+    replays per profiled block; the busy share is the device time of a
+    block over its steady time."""
+    from colvarsfinder_tpu_torch.ops import _cuda
+
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _cuda.launch_counts()
+    write_s = 0.0 if writer is None else writer(res)
+    for name, a in result_arrays(res).items():
+        if a.dtype.kind == "f" and not np.isfinite(a).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+    stages = {}
+    t0 = time.perf_counter()
+    twin = call(_eager_blocks=twin_blocks, **(twin_over or {}))
+    stages["eager twin"] = time.perf_counter() - t0
+    got, want = prefix(res, twin_blocks), prefix(twin, twin_blocks)
+    same = all(np.array_equal(a, b) for a, b in zip(got, want))
+    if not same:
+        gaps = [float(np.abs(np.asarray(a, np.float64)
+                             - np.asarray(b, np.float64)).max())
+                for a, b in zip(got, want)]
+        raise AssertionError(f"{label}: the captured run's first "
+                             f"{twin_blocks} blocks differ from its eager "
+                             f"twin's (max gaps {gaps})")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call(**short_over)
+    torch.cuda.synchronize()
+    short_s = time.perf_counter() - t0
+    profile_over = short_over if profile_over is None else profile_over
+    n_prof = short_blocks if profile_over is short_over else 2
+    # the card's activities only: the host-side operator events of the eager
+    # first block and the capture would swamp the trace
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call(**profile_over)
+        torch.cuda.synchronize()
+    kernels = device_activities(prof)
+    busy_s = sum(e.self_device_time_total for e in kernels) * 1e-6
+    replays = sum(e.count for e in prof.key_averages()
+                  if e.key == "cudaGraphLaunch")
+    stages["short call"] = short_s
+    stages["profiled call and its tables"] = time.perf_counter() - t0
+    block_s = (wall - write_s - short_s) / (blocks - short_blocks)
+    device_s = busy_s / n_prof * profile_scale
+    row = dict(
+        chains=chains, steps=steps, blocks=blocks, wall_s=wall,
+        write_s=write_s,
+        chain_steps_per_s=chains * steps / wall,
+        chain_steps_per_s_integration=chains * steps / (wall - write_s),
+        steady_ms_per_block=block_s * 1e3,
+        steady_chain_steps_per_s=chains * steps / blocks / block_s,
+        fixed_s=short_s - short_blocks * block_s,
+        device_ms_per_block=device_s * 1e3,
+        device_activities_per_block=sum(e.count for e in kernels)
+        / n_prof * profile_scale,
+        graph_replays_per_profiled_block=replays / n_prof,
+        busy_share=device_s / block_s,
+        launches=counts, eager_twin_blocks=twin_blocks, bitwise=same,
+        check_s=stages,
+    )
+    log(f"  {label}: {chains} x {steps:,} steps in {wall:.2f} s -> "
+        f"{row['chain_steps_per_s']:,.0f} chain-steps/s (files "
+        f"{write_s:.2f} s; integration "
+        f"{row['chain_steps_per_s_integration']:,.0f}; steady "
+        f"{row['steady_ms_per_block']:.3f} ms per block, "
+        f"{row['steady_chain_steps_per_s']:,.0f} chain-steps/s, fixed "
+        f"{row['fixed_s']:.2f} s per call); device "
+        f"{row['device_ms_per_block']:.3f} ms and "
+        f"{row['device_activities_per_block']:.1f} activities per block, "
+        f"{row['graph_replays_per_profiled_block']:.3f} graph replays per "
+        f"block in a profiled call of {n_prof} blocks (the first captured), "
+        f"busy share {100 * row['busy_share']:.1f}% of a steady block; "
+        f"first {twin_blocks} blocks bit for bit equal to the eager twin: "
+        f"{same}; launches {counts}; checks {stages} ({card})")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
+    for e in top:
+        log(f"    {e.self_device_time_total / n_prof * profile_scale:9.1f} "
+            f"us/block {e.count / n_prof * profile_scale:7.1f}x/block  "
+            f"{e.key[:70]}")
+    return res, row
+
+
+def metad_gaps(a, b, blocks):
+    """Relative gaps of two metadynamics runs over their first ``blocks``
+    deposition blocks: frames, CV values and hill heights, each over its
+    largest magnitude."""
+    out = {}
+    for name in ("frames", "cv_values", "hill_heights"):
+        x = np.asarray(getattr(a, name)[:, :blocks], np.float64)
+        y = np.asarray(getattr(b, name)[:, :blocks], np.float64)
+        out[name] = float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30))
+    return out
+
+
+def phase_samplers(card, ref, traj_np, runs, cvf):
+    """Phase 12: the samplers at the examples' sizes, each report or
+    deposition block one captured CUDA graph."""
+    from colvarsfinder_tpu_torch.utils import (
+        integrate_sde_langevin,
+        integrate_sde_metadynamics,
+        integrate_sde_overdamped,
+        integrate_sde_remd,
+        integrate_sde_steered,
+        integrate_sde_umbrella,
+    )
+    from colvarsfinder_tpu_torch.utils.sampling import _write_chains
+
+    t_phase = time.perf_counter()
+    for r in runs.values():
+        r["task"].release_device_data()
+    torch.cuda.empty_cache()
+    out = {}
+    dev = torch.device("cuda")
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    n_rep = (SAMPLER_STEPS - 1) // SAMPLER_REPORT + 1
+
+    def chain_writer(label):
+        """The seconds a call spent on its files: the first WRITE_CHAINS
+        chains' files written again, scaled to all chains."""
+        def write(res):
+            frames = res[0] if res[0].ndim == 3 else res[0][None]
+            energies = res[1] if res[1].ndim == 2 else res[1][None]
+            t0 = time.perf_counter()
+            _write_chains(f"{tmp}/{label}-again", "traj.txt", "output.csv",
+                          frames[:WRITE_CHAINS], np.arange(n_rep)
+                          * SAMPLER_REPORT * SAMPLER_DT,
+                          energies[:WRITE_CHAINS])
+            return ((time.perf_counter() - t0) * len(frames)
+                    / min(len(frames), WRITE_CHAINS))
+        return write
+
+    # (a) overdamped EM, (b) BAOAB: TripleWellCircle at beta 8
+    for label, fn, chains in (
+        ("a overdamped 1 chain", integrate_sde_overdamped, 1),
+        ("a overdamped", integrate_sde_overdamped, SAMPLER_CHAINS),
+        ("b baoab", integrate_sde_langevin, SAMPLER_CHAINS),
+    ):
+        def call(fn=fn, chains=chains, label=label, **over):
+            kw = dict(n_steps=SAMPLER_STEPS, report_interval=SAMPLER_REPORT,
+                      step_size=SAMPLER_DT, X0=[0.5, -0.866], seed=7,
+                      n_chains=chains, verbose=False, device=dev)
+            if fn is integrate_sde_langevin:
+                kw["friction"] = BAOAB_FRICTION
+            kw.update(over)
+            return fn(TripleWellCircle(), sampling_output_path=f"{tmp}/{label}",
+                      **kw)
+
+        if chains == 1:
+            def prefix(res, m):
+                return res[0][:m], res[1][:m]
+        else:
+            def prefix(res, m):
+                return res[0][:, :m], res[1][:, :m]
+        # the eager twin integrates the first blocks only: nothing in a
+        # block depends on the number of reports
+        _, out[label] = sampler_run(
+            label, call, n_rep, chains, SAMPLER_STEPS, prefix, card,
+            dict(n_steps=PROFILE_BLOCKS * SAMPLER_REPORT),
+            twin_over=dict(n_steps=TWIN_BLOCKS * SAMPLER_REPORT),
+            writer=chain_writer(label))
+
+    # (c) well-tempered metadynamics along phase 4's trained fused CV (K2 in
+    # every step, forward and backward), 64 walkers on flattened frames
+    cv = runs["fused"]["task"].colvar_model()
+
+    def flat_cv(model):
+        return lambda x: model(x.reshape(-1, N_ATOMS, 3))
+
+    with torch.no_grad():
+        sample = torch.from_numpy(traj_np[:BATCH]).cuda()
+        width = METAD_WIDTH_STD * float(cv(sample).std())
+    rng = np.random.default_rng(12)
+    x0 = (ref.reshape(-1)[None] + 0.3 * rng.standard_normal(
+        (METAD_WALKERS, 3 * N_ATOMS))).astype(np.float32)
+    n_hills = METAD_STEPS // METAD_DEPOSIT
+
+    def metad(model, **over):
+        kw = dict(n_steps=METAD_STEPS, deposit_interval=METAD_DEPOSIT,
+                  step_size=METAD_DT, hill_height=METAD_HEIGHT,
+                  hill_width=width, bias_factor=METAD_GAMMA,
+                  n_chains=METAD_WALKERS, X0=x0, seed=11, verbose=False,
+                  device=dev)
+        kw.update(over)
+        return integrate_sde_metadynamics(HarmonicWell(ref), flat_cv(model),
+                                          **kw)
+
+    def metad_prefix(res, m):
+        return (res.frames[:, :m], res.cv_values[:, :m],
+                res.hill_centers[:, :m], res.hill_heights[:, :m])
+
+    fused_res, row = sampler_run(
+        "c metadynamics through K2", lambda **o: metad(cv, **o), n_hills,
+        METAD_WALKERS, METAD_STEPS, metad_prefix, card,
+        dict(n_steps=METAD_PROFILE_BLOCKS * METAD_DEPOSIT),
+        short_blocks=METAD_PROFILE_BLOCKS,
+        profile_over=dict(n_steps=2 * METAD_PROFILE_DEPOSIT,
+                          deposit_interval=METAD_PROFILE_DEPOSIT),
+        profile_scale=METAD_DEPOSIT // METAD_PROFILE_DEPOSIT)
+    row["k2_per_step"] = row["launches"]["fused_align"] / METAD_STEPS
+    log(f"  c: K2 {row['launches']['fused_align']} launches, "
+        f"{row['k2_per_step']:.4f} per step (one a step, one a deposition, "
+        f"one to size the CV)")
+    if row["k2_per_step"] < 1:
+        raise AssertionError("metadynamics along the fused CV did not launch "
+                             "K2 in every step")
+    # the same walkers through the CV rebuilt with the plain layers and the
+    # same heads, over the first METAD_HELD_BLOCKS deposition blocks
+    plain = {}
+    t0 = time.perf_counter()
+    for method in ("quaternion", "svd"):
+        pp = cvf.PreprocessingANN(
+            cvf.AlignmentLayer(ref, list(range(N_ATOMS)), method=method),
+            cvf.FeatureLayer([cvf.Feature("p", "position",
+                                          list(range(N_ATOMS)))]))
+        plain[method] = metad(cvf.ColvarModel(pp, cv.head).cuda(),
+                              n_steps=METAD_HELD_BLOCKS * METAD_DEPOSIT)
+    fused_held = metad_gaps(fused_res, plain["quaternion"], METAD_HELD_BLOCKS)
+    plain_pair = metad_gaps(plain["svd"], plain["quaternion"],
+                            METAD_HELD_BLOCKS)
+    bars = {name: max(2 * gap, METAD_RTOL_FLOOR)
+            for name, gap in plain_pair.items()}
+    row["check_s"]["plain layers"] = time.perf_counter() - t0
+    row.update(hill_width=width, vs_quaternion=fused_held,
+               svd_vs_quaternion=plain_pair, bars=bars)
+    log(f"  c against the quaternion layer over {METAD_HELD_BLOCKS} "
+        f"deposition blocks: {fused_held}; two plain versions (svd against "
+        f"quaternion): {plain_pair}; bars {bars}")
+    for name, bar in bars.items():
+        if not fused_held[name] <= bar:
+            raise AssertionError(f"c: {name} parts from the quaternion twin "
+                                 f"by {fused_held[name]:.3e} > {bar}")
+    out["c metadynamics through K2"] = row
+
+    # (d) a steered pull, then umbrella windows seeded by it, then MBAR:
+    # adaptive_umbrella.py:114-138 on the triple well, along its angle
+    centers = np.linspace(*UMB_RANGE, UMB_WINDOWS)
+    spacing = centers[1] - centers[0]
+    kappa = 4.0 / (SAMPLER_BETA * spacing**2)
+
+    def pull(**over):
+        kw = dict(n_steps=UMB_STEPS, n_realizations=UMB_WINDOWS,
+                  X0=[1.0, 0.0], pre_steps=UMB_PRE, step_size=UMB_DT,
+                  report_interval=PULL_REPORT, seed=7, verbose=False,
+                  device=dev)
+        kw.update(over)
+        return integrate_sde_steered(TripleWellCircle(), angle_cv, UMB_RANGE[0],
+                                     UMB_RANGE[1], 10 * kappa, **kw)
+
+    pulled, out["d steered"] = sampler_run(
+        "d steered", pull, UMB_STEPS // PULL_REPORT, UMB_WINDOWS, UMB_STEPS,
+        lambda r, m: (r.frames[:, :m], r.cv_values[:, :m], r.works[:, :m],
+                      r.schedule[:m]),
+        card, dict(n_steps=PROFILE_BLOCKS * PULL_REPORT, pre_steps=0,
+                   X0=np.tile([1.0, 0.0], (UMB_WINDOWS, 1))))
+    starts = pulled.window_starts(centers)
+
+    def umbrella(**over):
+        kw = dict(n_steps=UMB_STEPS, X0=starts, pre_steps=UMB_PRE,
+                  step_size=UMB_DT, report_interval=UMB_REPORT, seed=11,
+                  verbose=False, device=dev,
+                  sampling_output_path=f"{tmp}/umbrella")
+        kw.update(over)
+        return integrate_sde_umbrella(TripleWellCircle(), angle_cv, centers,
+                                      kappa, **kw)
+
+    umb, row = sampler_run(
+        "d umbrella", umbrella, (UMB_STEPS - 1) // UMB_REPORT + 1,
+        UMB_WINDOWS, UMB_STEPS,
+        lambda r, m: (r.frames[:, :m], r.cv_values[:, :m]), card,
+        dict(n_steps=PROFILE_BLOCKS * UMB_REPORT, pre_steps=0))
+    t0 = time.perf_counter()
+    mb = umb.mbar()
+    row["mbar_s"] = time.perf_counter() - t0
+    w = np.concatenate(mb.weights)
+    means = umb.cv_values.mean(axis=1)[:, 0]
+    row.update(mbar_converged=bool(mb.converged), mbar_iterations=mb.n_iter,
+               window_free_energies=mb.free_energies.tolist(),
+               mean_abs_cv_minus_center=float(np.abs(means - centers).mean()))
+    log(f"  d: MBAR over {w.size} frames in {row['mbar_s']:.2f} s, "
+        f"{mb.n_iter} iterations, converged {mb.converged}; window free "
+        f"energies {np.round(mb.free_energies, 2).tolist()} kT; mean |CV - "
+        f"center| {row['mean_abs_cv_minus_center']:.3f}")
+    if not (mb.converged and np.isfinite(w).all() and abs(w.mean() - 1) < 1e-9):
+        raise AssertionError("d: MBAR did not give finite weights of mean 1")
+    out["d umbrella"] = row
+
+    # (e) replica exchange: replica_exchange.py:65-70
+    eeb = REMD_EXCHANGE // REMD_REPORT
+
+    def remd(**over):
+        kw = dict(n_steps=REMD_STEPS, X0=[-1.0, 0.0], step_size=REMD_DT,
+                  report_interval=REMD_REPORT, exchange_interval=REMD_EXCHANGE,
+                  seed=1, verbose=False, device=dev,
+                  sampling_output_path=f"{tmp}/remd")
+        kw.update(over)
+        return integrate_sde_remd(DoubleWell2D(), list(REMD_BETAS), **kw)
+
+    rem, row = sampler_run(
+        "e remd", remd, (REMD_STEPS - 1) // REMD_REPORT + 1,
+        len(REMD_BETAS), REMD_STEPS,
+        lambda r, m: (r.frames[:, :m], r.energies[:, :m],
+                      r.swap_history[:m]),
+        card, dict(n_steps=PROFILE_BLOCKS * REMD_REPORT),
+        twin_blocks=2 * eeb + 1)
+    cold = float((rem.frames[0, :, 0] > 0).mean())
+    row.update(pair_acceptance=rem.pair_acceptance.tolist(),
+               cold_right_well_fraction=cold)
+    log(f"  e: pair acceptance {np.round(rem.pair_acceptance, 3).tolist()}, "
+        f"cold slot right-well fraction {cold:.3f}")
+    if not 0.1 < cold < 0.9:
+        raise AssertionError("e: the cold slot did not visit both wells")
+    out["e remd"] = row
+    out["launches"] = {"fused_align":
+                       out["c metadynamics through K2"]["launches"]
+                       ["fused_align"]}
+    tmp_dir.cleanup()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 12 took {out['phase_s']:.1f} s")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2561,6 +3012,8 @@ def main():
     streaming = phase_streaming(card, ref, traj_np, w_np, cvf, runs)
     log("phase 11: the data mesh, one rank of an NCCL group")
     mesh = phase_mesh(card, ref, traj_np, w_np, cvf, runs, sweep, sweep_b)
+    log("phase 12: the samplers")
+    samplers = phase_samplers(card, ref, traj_np, runs, cvf)
     launches = {"kabsch_qcp": runs["k1"]["counts"]["kabsch_qcp"]}
     for name in ("fused_align", "stats_fwd", "stats_bwd"):
         launches[name] = runs["fused"]["counts"][name]
@@ -2571,10 +3024,13 @@ def main():
         launches[name] += n
     for name, n in mesh["launches"].items():
         launches[name] += n
+    # and phase 12's metadynamics along the fused CV
+    launches["fused_align"] += samplers["launches"]["fused_align"]
     log(f"K2 launches: main path {runs['fused']['counts']['fused_align']}, "
         f"sweep {sweep['b fused f32']['k2_launches']}, streamed "
         f"{streaming['launches']['fused_align']}, meshed "
-        f"{mesh['launches']['fused_align']}; K3 streamed "
+        f"{mesh['launches']['fused_align']}, samplers "
+        f"{samplers['launches']['fused_align']}; K3 streamed "
         f"{streaming['launches']['stats_fwd']}, K4 streamed "
         f"{streaming['launches']['stats_bwd']}")
     rows = []
@@ -2599,6 +3055,7 @@ def main():
         "sweep": sweep,
         "streaming": streaming,
         "mesh": mesh,
+        "samplers": samplers,
     }))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

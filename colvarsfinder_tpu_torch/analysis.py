@@ -24,6 +24,7 @@ __all__ = [
     "MSMResult",
     "committor_self_consistency",
     "msm",
+    "statistical_inefficiency",
     "vamp_score",
 ]
 
@@ -441,3 +442,90 @@ def committor_self_consistency(
     with np.errstate(invalid="ignore"):
         centers = np.where(wsum > 0, sums / np.maximum(wsum, 1e-300), np.nan)
     return CommittorCheck(centers, q_msm, counts)
+
+
+def statistical_inefficiency(
+    cv_values,
+    segment_starts=None,
+    *,
+    mintime: int = 3,
+    max_lag: Optional[int] = None,
+) -> np.ndarray:
+    """Statistical inefficiency ``g = 1 + 2*tau_int`` of each CV head.
+
+    The integrated-autocorrelation-time estimator of Chodera et al.
+    (J. Chem. Theory Comput. 3, 2007; the ``pymbar.timeseries``
+    convention): with normalized autocorrelation ``C(t)`` of the series,
+
+    .. math:: g = 1 + 2 \\sum_{t \\ge 1} \\frac{N_t}{N} C(t)
+
+    summed until ``C(t)`` first drops below zero (but at least to
+    ``mintime``), where ``N_t`` is the number of valid lagged pairs at
+    lag ``t`` (``(1 - t/N)`` for one contiguous trajectory; pairs never
+    straddle ``segment_starts`` boundaries for concatenated data). A
+    correlated trajectory of ``N`` frames carries only ``N / g``
+    independent samples — the number every downstream estimator (MBAR,
+    bootstrap bands, committor bins) actually gets.
+
+    Unlike :func:`autocorrelation` this is deliberately UNWEIGHTED:
+    ``g`` characterizes the *sampling process* (how fast the chain
+    decorrelates), while ``WeightedTrajectory.weights`` are ensemble
+    reweighting factors — folding them in would mix the two questions.
+
+    Args:
+        cv_values: ``[n]`` or ``[n, k]`` time series IN FRAME ORDER.
+        segment_starts: source offsets for concatenated trajectories
+            (``WeightedTrajectory.segment_starts``); the correlation sum
+            then uses within-segment pairs only.
+        mintime: minimum lag to include before the negative-``C`` stop
+            rule may trigger (guards against noise at tiny lags).
+        max_lag: hard cap on the largest lag summed (default ``n // 2``
+            — past half the series length the estimator is pure noise
+            anyway). Keeps trended / non-stationary series, whose
+            autocorrelation may never cross zero, from degrading to an
+            O(n^2) scan (pymbar guards the same way with adaptive lag
+            stepping; past lag 256 this implementation also switches to
+            geometric lag stepping, each sampled ``C(t)`` standing in
+            for the skipped lags).
+
+    Returns:
+        ``[k]`` array of ``g >= 1`` (scalar semantics: index ``[0]``
+        for a 1-D series).
+    """
+    y = _as_series(cv_values)
+    n, k = y.shape
+    mu = y.mean(axis=0)
+    var = y.var(axis=0)
+    if np.any(var <= 0):
+        raise ValueError("constant CV series has no correlation time")
+    d = y - mu
+    t_max = n if max_lag is None else min(n, int(max_lag) + 1)
+    if max_lag is None:
+        t_max = max(2, n // 2)
+    dense_lags = 256  # dense sum below, geometric stepping above
+    g = np.ones(k, dtype=np.float64)
+    for h in range(k):
+        acc = 0.0
+        t, prev_t = 1, 0
+        while t < t_max:
+            starts = _pair_starts_or_none(n, t, segment_starts)
+            if starts is None or starts.size == 0:
+                break
+            c = float(np.mean(d[starts, h] * d[starts + t, h])) / var[h]
+            if c <= 0.0 and t > mintime:
+                break
+            # each sampled C(t) represents the (prev_t, t] lag gap
+            acc += (t - prev_t) * (starts.size / n) * c
+            prev_t = t
+            t = t + 1 if t < dense_lags else int(np.ceil(t * 1.05))
+        g[h] = max(1.0, 1.0 + 2.0 * acc)
+    return g
+
+
+def _pair_starts_or_none(n: int, lag: int, segment_starts):
+    """:func:`_pair_starts` that returns ``None`` instead of raising
+    when no segment is long enough (the correlation sum just stops)."""
+    try:
+        return _pair_starts(n, lag, segment_starts)
+    except ValueError:
+        return None

@@ -118,13 +118,16 @@ class CapturedEpoch(NamedTuple):
     held: list
 
 
-def capture_epoch(body, device, key_fn) -> CapturedEpoch:
+def capture_epoch(body, device, key_fn,
+                  what: str = "the training epoch") -> CapturedEpoch:
     """Run ``body()`` once eagerly on a side stream (a real epoch, which
     also creates the optimizer's state, the cuBLAS handles and the kernel
     libraries), then capture it as a CUDA graph on that stream with its
     kernel launches counted; ``key_fn()`` gives the ``(key, held)`` of the
-    result after the eager epoch. A capture that fails raises: nothing
-    falls back to eager on the card.
+    result after the eager epoch. A capture that fails raises, naming
+    ``what`` was captured: nothing falls back to eager on the card. The
+    samplers capture their integration blocks with it too
+    (:mod:`..utils.sampling`).
 
     Python's cyclic garbage collector is run before the capture and held
     off during it: a graph that died in a reference cycle would otherwise
@@ -145,9 +148,8 @@ def capture_epoch(body, device, key_fn) -> CapturedEpoch:
             body()
     except RuntimeError as err:
         raise RuntimeError(
-            "capturing the training epoch as a CUDA graph failed (a host "
-            "sync or a call that capture forbids inside the step?): "
-            f"{err}"
+            f"capturing {what} as a CUDA graph failed (a host sync or a "
+            f"call that capture forbids inside it?): {err}"
         ) from err
     finally:
         gc.enable()

@@ -10,7 +10,10 @@ and captured streamed steps against eager ones, launches per streamed step,
 pinned host buffers, the copies on their own stream, K1 and K2 streamed),
 and the data mesh at one rank of an NCCL group (captured meshed epochs and
 streamed steps against eager and unmeshed ones, NCCL's kernel in each
-replayed step, a meshed sweep). Every test here needs an NVIDIA card and ``nvcc``: it
+replayed step, a meshed sweep), and the samplers (each report block a
+captured graph bit for bit equal to eager blocks, one replay per block,
+metadynamics through K2 against the quaternion layer, a failed capture).
+Every test here needs an NVIDIA card and ``nvcc``: it
 carries the ``cuda`` marker and skips where ``torch.cuda.is_available()`` is
 false. This file imports neither JAX nor the JAX package, so it runs on a
 machine that has only PyTorch (``-s`` shows the graph-against-eager gaps):
@@ -1364,3 +1367,160 @@ def test_meshed_sweep_equals_unmeshed_sweep(dev, nccl_mesh, tmp_path):
         assert np.array_equal(a.test_loss, b.test_loss)
         assert all(torch.equal(a.model[n], b.model[n]) for n in a.model)
     ensemble.release_sweeps()
+
+
+# ---------------------------------------------------------------------------
+# the samplers (utils/sampling.py, utils/enhanced.py): each report or
+# deposition block one captured graph, replayed
+class _TripleWell:
+    """examples/enhanced_sampling.py's TripleWellCircle."""
+
+    dim, beta = 2, 8.0
+
+    def V(self, x):
+        theta = torch.atan2(x[1], x[0])
+        r = torch.sqrt(x[0] ** 2 + x[1] ** 2)
+        return 1.0 + torch.cos(3.0 * theta) + 8.0 * (r - 1.0) ** 2
+
+
+def _angle(x):
+    return torch.atan2(x[:, 1], x[:, 0])
+
+
+def _sampler(kind, tmp_path, **over):
+    """A short run of each sampler, four report (or deposition) blocks."""
+    from colvarsfinder_tpu_torch import utils as u
+
+    pot = _TripleWell()
+    kw = dict(X0=[1.0, 0.0], seed=3, verbose=False, device="cuda")
+    if kind == "overdamped":
+        kw.update(n_steps=200, report_interval=50, n_chains=64, pre_steps=70)
+        call = lambda: u.integrate_sde_overdamped(  # noqa: E731
+            pot, sampling_output_path=str(tmp_path), **kw)
+    elif kind == "baoab":
+        kw.update(n_steps=200, report_interval=50, n_chains=64, pre_steps=70,
+                  return_velocities=True)
+        call = lambda: u.integrate_sde_langevin(  # noqa: E731
+            pot, sampling_output_path=str(tmp_path), **kw)
+    elif kind == "metad":
+        kw.update(n_steps=200, deposit_interval=50, n_chains=8, pre_steps=70,
+                  bias_factor=5.0, hill_width=0.3)
+        call = lambda: u.integrate_sde_metadynamics(  # noqa: E731
+            pot, _angle, **kw)
+    elif kind == "umbrella":
+        kw.update(n_steps=200, report_interval=50, pre_steps=70)
+        call = lambda: u.integrate_sde_umbrella(  # noqa: E731
+            pot, _angle, np.linspace(-1.0, 1.0, 6), 8.0, **kw)
+    elif kind == "steered":
+        kw.update(n_steps=200, report_interval=50, pre_steps=70,
+                  n_realizations=6)
+        call = lambda: u.integrate_sde_steered(  # noqa: E731
+            pot, _angle, -1.0, 1.0, 20.0, **kw)
+    else:
+        kw.update(n_steps=200, report_interval=25, exchange_interval=50,
+                  pre_steps=70)
+        call = lambda: u.integrate_sde_remd(  # noqa: E731
+            pot, [8.0, 6.0, 4.5, 3.0], **kw)
+    kw.update(over)
+    res = call()
+    if isinstance(res, tuple):
+        return list(res)
+    return [v for v in vars(res).values() if isinstance(v, np.ndarray)]
+
+
+@pytest.mark.parametrize("kind", ["overdamped", "baoab", "metad", "umbrella",
+                                  "steered", "remd"])
+def test_captured_sampler_blocks_equal_eager_blocks(dev, tmp_path, kind):
+    """Every block after the first of a kind is a graph replay; the run
+    equals the same run with every block eager, bit for bit, the burn-in's
+    partial last block included."""
+    captured = _sampler(kind, tmp_path)
+    eager = _sampler(kind, tmp_path, _eager_blocks=100)
+    assert len(captured) == len(eager) > 1
+    for a, b in zip(captured, eager):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_sampler_blocks_replay_one_graph_each(dev, tmp_path):
+    from torch.profiler import ProfilerActivity, profile
+
+    _sampler("overdamped", tmp_path)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _sampler("overdamped", tmp_path)
+    replays = sum(e.count for e in prof.key_averages()
+                  if e.key == "cudaGraphLaunch")
+    # burn-in: one full block (captured), one partial (eager); reports:
+    # four blocks, the first captured
+    assert replays == 3
+
+
+def test_metadynamics_through_k2_matches_the_quaternion_layer(dev):
+    """K2 in every step, forward and backward, against the plain layer with
+    the same heads, within chip_smoke phase 12 (c)'s bar."""
+    from colvarsfinder_tpu_torch import (
+        ColvarModel,
+        Feature,
+        FeatureLayer,
+        PreprocessingANN,
+    )
+    from colvarsfinder_tpu_torch.utils import integrate_sde_metadynamics
+
+    rng = np.random.default_rng(0)
+    ref = rng.standard_normal((10, 3)).astype(np.float32)
+    idx = list(range(10))
+    head = EigenFunctions([30, 20, 20, 20, 1], 2, seed=0).cuda()
+
+    def cv(layer):
+        m = ColvarModel(PreprocessingANN(layer, FeatureLayer(
+            [Feature("p", "position", idx)])), head).cuda()
+        return lambda x: m(x.reshape(-1, 10, 3))
+
+    class Well:
+        dim, beta = 30, 1.0
+        c = torch.as_tensor(ref.reshape(-1), device="cuda")
+
+        def V(self, x):
+            return 0.5 / 0.09 * torch.sum((x - self.c.to(x.device)) ** 2)
+
+    x0 = ref.reshape(-1) + 0.3 * rng.standard_normal((64, 30))
+    kw = dict(n_steps=200, deposit_interval=100, step_size=5e-3,
+              hill_height=0.35, hill_width=0.05, bias_factor=10.0,
+              n_chains=64, X0=x0, seed=1, verbose=False, device="cuda")
+    _cuda.reset_launch_counts()
+    fused = integrate_sde_metadynamics(Well(), cv(FusedAlignmentLayer(
+        ref, idx)), **kw)
+    assert _cuda.launch_counts()["fused_align"] >= 200
+    quat, svd = (integrate_sde_metadynamics(Well(), cv(AlignmentLayer(
+        ref, idx, method=m)), **kw) for m in ("quaternion", "svd"))
+
+    def gap(a, b, name):
+        a, b = getattr(a, name), getattr(b, name)
+        return np.abs(a - b).max() / np.abs(b).max()
+
+    # chip_smoke phase 12 (c)'s bar: twice the gap of two plain versions,
+    # never below 8 float32 ulps
+    for name in ("frames", "cv_values", "hill_heights"):
+        bar = max(2 * gap(svd, quat, name), 1e-6)
+        assert gap(fused, quat, name) <= bar, name
+
+
+def test_a_failure_inside_a_sampler_block_raises_and_leaves_no_graph(
+        dev, tmp_path):
+    """A host sync inside a block: the first block runs eagerly, its capture
+    fails and raises; no capture is left open, and the next call runs."""
+    from colvarsfinder_tpu_torch.utils import integrate_sde_overdamped
+
+    class Syncing(_TripleWell):
+        def batched_V(self, x):
+            v = torch.func.vmap(self.V)(x)
+            return v * float(x.abs().max() > 0)
+
+    with pytest.raises(RuntimeError, match="capturing a sampler block"):
+        integrate_sde_overdamped(Syncing(), 200, str(tmp_path),
+                                 X0=[1.0, 0.0], report_interval=50, seed=0,
+                                 verbose=False, device="cuda")
+    assert not torch.cuda.is_current_stream_capturing()
+    frames, _ = integrate_sde_overdamped(
+        _TripleWell(), 200, str(tmp_path), X0=[1.0, 0.0], report_interval=50,
+        seed=0, verbose=False, device="cuda")
+    assert np.isfinite(frames).all()

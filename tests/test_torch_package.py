@@ -26,9 +26,11 @@ REPO = PKG.parent
 def test_import_pulls_in_no_jax():
     code = (
         "import sys, colvarsfinder_tpu_torch as p\n"
+        "import colvarsfinder_tpu_torch.utils.sampling\n"
+        "import colvarsfinder_tpu_torch.utils.enhanced\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'colvarsfinder_tpu'"
-        " or m.startswith('colvarsfinder_tpu.')]\n"
+        " or m.startswith('colvarsfinder_tpu.') or m == 'pandas']\n"
         "assert not bad, bad\n"
         "print('ok', len(p.__all__))\n"
     )
