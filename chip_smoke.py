@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one NVIDIA card, end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase
+    python3 chip_smoke.py --phases 1-5,13 # chosen phases, while iterating
+
+``--phases`` runs phases 1-3 always, and with a chosen phase the phases it
+takes results from (phase 4 for 5 and 8-12, phase 9 for 11); the kernels
+line then counts the launches of the phases that ran.
 
 Phases (each raises on failure; nothing is caught):
 
@@ -141,7 +146,24 @@ Phases (each raises on failure; nothing is caught):
    its first blocks; chain-steps/s over the call's wall time (and without
    its output files), the fixed seconds per call and the steady time per
    block, and under torch.profiler the device time, activities and graph
-   replays per block and the busy share; K2 launches per step for (c).
+   replays per block and the busy share; K2 launches per step for (c);
+13. MD trajectory input, the reference's workflow (examples/dipeptide.py:
+   214-246): a 22-atom ACE-ALA-NME topology written with write_gro and
+   1,000,000 frames made from seed 0 written with write_xtc as a restart
+   chain of two files of 500,000 frames at 1 ps; Universe(gro, [a, b]) (both
+   files through the native decoder built from native/fastio.cpp),
+   select_atoms of the 10 heavy atoms, WeightedTrajectory with seeded
+   weights, and phase 4's fused task (K2, K3, K4) on them, 4 epochs
+   captured. Held: the native decode bit for bit the pure-Python decoder on
+   each file's first 2,000 frames; every frame within half an XTC step of
+   the frame written; segment_starts [0, 500000] and dt from the files; the
+   Universe-fed run bit for bit its twin on the array branch (the decoded
+   array, the same weights, segment_starts and seed); launches per train
+   step as phase 4's; backbone_dihedrals' phi/psi and their FeatureLayer on
+   the card against the CPU on 20,000 frames. Seconds to write each file
+   and its MB, decode frames/s and MB/s, WeightedTrajectory seconds and
+   training samples/s beside the card's name. Nothing is cut: on an H100
+   the phase takes about 13 s.
 
 The second-to-last line lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -315,6 +337,26 @@ WRITE_CHAINS = 128
 # versions of the run (the svd layer against the quaternion layer, measured
 # in the same call), and never below METAD_RTOL_FLOOR (8 float32 ulps)
 METAD_HELD_BLOCKS, METAD_RTOL_FLOOR = 2, 1e-6
+
+# phase 13: the reference's MD workflow (examples/dipeptide.py:214-246,
+# SURVEY.md row 11): a 22-atom ACE-ALA-NME topology (the atoms and residues
+# of examples/dipeptide.py:55-100), 1,000,000 frames at 1 ps (1 us, the
+# upper end of SURVEY.md:395's 1e5-1e6 frames) written as a restart chain
+# of two XTC files of 500,000 frames each; the heavy atoms are make_data's
+# noise around the topology's reference, the hydrogens ride on their heavy
+# atoms with small noise. XTC stores 0.001 nm steps, so a frame read back
+# is within half a step (plus float32 rounding) of the frame written
+MD_FILES, MD_FRAMES_PER_FILE, MD_DT_PS, MD_PRECISION = 2, 500_000, 1.0, 1000.0
+MD_H_NOISE, MD_EPOCHS, MD_PY_FRAMES, MD_FEATURE_FRAMES = 0.01, 4, 2_000, 20_000
+MD_FEATURE_ATOL = 1e-6
+MD_NAMES = ["HH31", "CH3", "HH32", "HH33", "C", "O",
+            "N", "H", "CA", "HA", "CB", "HB1", "HB2", "HB3", "C", "O",
+            "N", "H", "CH3", "HH31", "HH32", "HH33"]
+MD_RESIDS = [1] * 6 + [2] * 10 + [3] * 6
+MD_RESNAMES = ["ACE"] * 6 + ["ALA"] * 10 + ["NME"] * 6
+# the Ramachandran quadruples of the full topology (examples/dipeptide.py:
+# 48-49)
+MD_PHI, MD_PSI = (4, 6, 8, 14), (6, 8, 14, 16)
 
 # the fused run's settings tried besides the defaults (one call each)
 STREAM_VARIANTS = (("1 gather thread", dict(stream_transfer_workers=1)),
@@ -686,7 +728,7 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
 
 def make_task(cvf, traj_obj, ref, path, fused, method, epochs,
               save_every=0, align_weights=None, model_seed=0, lr=LR,
-              alpha=ALPHA, test_ratio=TEST_RATIO, **kw):
+              alpha=ALPHA, test_ratio=TEST_RATIO, dt=DT, **kw):
     if method == "fused":
         align = cvf.FusedAlignmentLayer(ref, list(range(N_ATOMS)))
     else:
@@ -699,7 +741,7 @@ def make_task(cvf, traj_obj, ref, path, fused, method, epochs,
     )
     return cvf.EigenFunctionTask(
         traj_obj, pp, cvf.EigenFunctions(list(DIMS), K, seed=model_seed),
-        path, alpha=alpha, eig_weights=EIG_W, lag_tau=LAG * DT,
+        path, alpha=alpha, eig_weights=EIG_W, lag_tau=LAG * dt,
         learning_rate=lr, save_model_every_step=save_every, k=K,
         batch_size=BATCH, num_epochs=epochs, test_ratio=test_ratio,
         verbose=False, tensorboard=False, seed=0, debug_mode=False,
@@ -2966,7 +3008,307 @@ def phase_samplers(card, ref, traj_np, runs, cvf):
     return out
 
 
+def md_topology(seed):
+    """The 22-atom ACE-ALA-NME topology: a bent backbone with jittered
+    substituents (the geometry of examples/dipeptide.py:55-82)."""
+    from colvarsfinder_tpu_torch.utils.io import Topology
+
+    rng = np.random.default_rng(seed)
+    pos = np.zeros((22, 3), dtype=np.float32)
+    backbone = {1: 0, 4: 1, 6: 2, 8: 3, 14: 4, 16: 5, 18: 6}
+    for i in range(22):
+        if i in backbone:
+            b = backbone[i]
+            pos[i] = [0.14 * b, 0.05 * ((-1) ** b), 0.02 * b]
+        else:
+            anchor = max((a for a in backbone if a <= i), default=1)
+            pos[i] = pos[anchor] + 0.1 * rng.standard_normal(3)
+    return Topology(names=list(MD_NAMES), resids=list(MD_RESIDS),
+                    resnames=list(MD_RESNAMES), positions=pos,
+                    title="ACE-ALA-NME, chip_smoke phase 13")
+
+
+def md_frames(top, n, seed):
+    """n frames [n, 22, 3]: the heavy atoms (C, N, O) as make_data's
+    noise around the topology's positions, each hydrogen at its fixed
+    offset from the heavy atom before it, with small noise."""
+    rng = np.random.default_rng(seed)
+    heavy = np.array([not name.startswith("H") for name in top.names])
+    pos = top.positions
+    frames = np.empty((n, 22, 3), dtype=np.float32)
+    frames[:, heavy] = pos[heavy] + 0.3 * rng.standard_normal(
+        (n, int(heavy.sum()), 3), dtype=np.float32)
+    hyd = np.nonzero(~heavy)[0]
+    # a hydrogen's heavy atom: the nearest heavy atom before it in the file
+    # (the methyl hydrogen before the ACE carbon takes that carbon)
+    host = np.array([max((j for j in np.nonzero(heavy)[0] if j < h),
+                         default=1) for h in hyd])
+    frames[:, hyd] = (frames[:, host] + (pos[hyd] - pos[host])
+                      + MD_H_NOISE * rng.standard_normal(
+                          (n, hyd.size, 3), dtype=np.float32))
+    return frames
+
+
+def xtc_head(path, out_path, n_frames):
+    """Copy an XTC file's first n_frames frames into out_path, by walking
+    the frame headers."""
+    from colvarsfinder_tpu_torch.utils import xtc
+
+    with open(path, "rb") as f:
+        buf = f.read()
+    off = 0
+    for _ in range(n_frames):
+        off, _natoms, _t = xtc._skip_frame(buf, off)
+    with open(out_path, "wb") as f:
+        f.write(buf[:off])
+
+
+def python_read_xtc(path):
+    """The pure-Python XTC decoder (the native one switched off)."""
+    from colvarsfinder_tpu_torch.utils import native_io, xtc
+
+    real = native_io.decode_xtc
+    native_io.decode_xtc = lambda *a, **k: None
+    try:
+        return xtc.read_xtc(path)
+    finally:
+        native_io.decode_xtc = real
+
+
+def phase_md_input(card, cvf):
+    """Phase 13: the reference's MD workflow, gro + a chain of XTC files ->
+    Universe -> select_atoms -> WeightedTrajectory -> the fused task (K2,
+    K3, K4), on frames decoded by the native reader."""
+    from colvarsfinder_tpu_torch.ops import _cuda
+    from colvarsfinder_tpu_torch.utils import (
+        Universe,
+        native_io,
+        write_gro,
+        write_xtc,
+    )
+
+    t_phase = time.perf_counter()
+    n_total = MD_FILES * MD_FRAMES_PER_FILE
+    # (a) the native reader builds here, and decodes both files
+    if not native_io.available():
+        raise AssertionError("the native IO library did not build "
+                             "(native/fastio.cpp, g++)")
+    native_decodes = []
+    real_decode = native_io.decode_xtc
+
+    def recording_decode(filename, *a, **k):
+        got = real_decode(filename, *a, **k)
+        native_decodes.append((filename, got is not None))
+        return got
+
+    top = md_topology(0)
+    t0 = time.perf_counter()
+    frames = md_frames(top, n_total, seed=0)
+    log(f"  {n_total:,} frames of {top.n_atoms} atoms made from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        gro = os.path.join(tmp, "top.gro")
+        write_gro(gro, top)
+        paths, write_s, file_mb = [], [], []
+        for i in range(MD_FILES):
+            path = os.path.join(tmp, f"md_{i}.xtc")
+            lo = i * MD_FRAMES_PER_FILE
+            t0 = time.perf_counter()
+            write_xtc(path, frames[lo:lo + MD_FRAMES_PER_FILE],
+                      dt_ps=MD_DT_PS, precision=MD_PRECISION,
+                      t0_ps=lo * MD_DT_PS, step_interval=1)
+            write_s.append(time.perf_counter() - t0)
+            file_mb.append(os.path.getsize(path) / 1e6)
+            paths.append(path)
+            log(f"  write_xtc {path.rsplit('/', 1)[1]}: "
+                f"{MD_FRAMES_PER_FILE:,} frames, {file_mb[-1]:.2f} MB in "
+                f"{write_s[-1]:.3f} s ({card})")
+
+        native_io.decode_xtc = recording_decode
+        try:
+            t0 = time.perf_counter()
+            u = Universe(gro, paths)
+            universe_s = time.perf_counter() - t0
+        finally:
+            native_io.decode_xtc = real_decode
+        if [p for p, native in native_decodes] != paths or not all(
+                native for _p, native in native_decodes):
+            raise AssertionError(f"not every file decoded natively: "
+                                 f"{native_decodes}")
+        mb = sum(file_mb)
+        log(f"  Universe(gro, [{MD_FILES} xtc]) in {universe_s:.3f} s: "
+            f"{n_total / universe_s:,.0f} frames/s, {mb / universe_s:.1f} "
+            f"MB/s of XTC, both files through the native decoder ({card})")
+        decoded = u.trajectory.timeseries(order="fac")
+        if decoded.shape != (n_total, 22, 3):
+            raise AssertionError(f"decoded shape {decoded.shape}")
+
+        # (b) bit for bit the Python decoder on each file's first frames
+        for i, path in enumerate(paths):
+            head = os.path.join(tmp, f"head_{i}.xtc")
+            xtc_head(path, head, MD_PY_FRAMES)
+            py, py_dt, _times = python_read_xtc(head)
+            lo = i * MD_FRAMES_PER_FILE
+            if not np.array_equal(py, decoded[lo:lo + MD_PY_FRAMES]):
+                raise AssertionError(f"{path}: the native decode differs "
+                                     "from the Python decoder")
+            if py_dt != MD_DT_PS:
+                raise AssertionError(f"Python decoder's dt {py_dt}")
+        log(f"  native decode bit for bit the Python decoder on the first "
+            f"{MD_PY_FRAMES:,} frames of each file: True")
+
+        # (c) within half an XTC step (and float32 rounding) of the input
+        err = float(np.abs(decoded - frames).max())
+        bar = (0.5 / MD_PRECISION
+               + 2 * np.finfo(np.float32).eps * float(np.abs(frames).max()))
+        log(f"  read vs written: max |error| {err:.3e} nm over {n_total:,} "
+            f"frames (bar {bar:.3e})")
+        if not err <= bar:
+            raise AssertionError(f"XTC round trip error {err} > {bar}")
+        del frames
+
+    # (d) the restart chain's boundary and the files' frame spacing
+    seg = u.trajectory.segment_starts
+    if seg is None or list(seg) != [0, MD_FRAMES_PER_FILE]:
+        raise AssertionError(f"segment_starts {seg}")
+    if u.trajectory.dt != MD_DT_PS:
+        raise AssertionError(f"Universe dt {u.trajectory.dt} ps")
+
+    sel = u.select_atoms("type C or type O or type N")
+    if len(sel) != N_ATOMS:
+        raise AssertionError(f"{len(sel)} heavy atoms selected")
+    w = np.random.default_rng(3).uniform(0.5, 1.5, n_total)
+    t0 = time.perf_counter()
+    traj = cvf.WeightedTrajectory(universe=u, input_ag=sel, weights=w,
+                                  verbose=False)
+    wt_s = time.perf_counter() - t0
+    log(f"  WeightedTrajectory(universe=u, input_ag=10 heavy atoms) in "
+        f"{wt_s:.3f} s, trajectory {traj.trajectory.shape} ({card})")
+    if traj.dt != MD_DT_PS * 1e-3:
+        raise AssertionError(f"trajectory dt {traj.dt} ns")
+    if list(traj.segment_starts) != [0, MD_FRAMES_PER_FILE]:
+        raise AssertionError(f"segment_starts {traj.segment_starts}")
+    twin_traj = cvf.WeightedTrajectory(
+        trajectory=decoded[:, sel.ix, :], weights=w, dt=traj.dt,
+        segment_starts=[0, MD_FRAMES_PER_FILE], verbose=False)
+
+    # (e), (f): the fused task on the Universe's frames and on the array
+    n_pairs = len(traj.valid_lagged_starts(LAG))
+    n_test = math.ceil(TEST_RATIO * n_pairs)
+    nb_train = (n_pairs - n_test) // BATCH
+    nb_test = 1 if n_test < BATCH else n_test // BATCH
+    ref = sel.positions
+    tasks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, obj in (("universe", traj), ("array", twin_traj)):
+            task = make_task(cvf, obj, ref, f"{tmp}/{label}", True, "fused",
+                             MD_EPOCHS, dt=obj.dt)
+            torch.cuda.synchronize()
+            _cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            task.train()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = _cuda.launch_counts()
+            want = {"kabsch_qcp": 0,
+                    "fused_align": 2 * MD_EPOCHS * (nb_train + nb_test),
+                    "stats_fwd": MD_EPOCHS * (nb_train + nb_test),
+                    "stats_bwd": MD_EPOCHS * nb_train}
+            if counts != want:
+                raise AssertionError(f"{label}: launches {counts}, the "
+                                     f"schedule implies {want}")
+            if not np.isfinite(task.train_loss).all():
+                raise AssertionError(f"{label}: non-finite metrics")
+            if task._graph is None:
+                raise AssertionError(f"{label}: no captured epoch")
+            steady = statistics.median(task.epoch_times[2:])
+            sps = nb_train * BATCH / steady
+            loss = task.train_loss[:, 0]
+            log(f"  fused task on the {label} branch: {MD_EPOCHS} epochs in "
+                f"{wall:.2f} s, loss {loss[0]:.5f} -> {loss[-1]:.5f}, "
+                f"{sps:,.0f} samples/s steady ({card}); launches {counts}, "
+                f"per train step K2 {2 * (nb_train + nb_test) / nb_train:.3f}"
+                f", K3 {(nb_train + nb_test) / nb_train:.3f}, K4 1")
+            tasks[label] = dict(task=task, counts=counts, sps=sps,
+                                wall=wall)
+    a, b = tasks["universe"]["task"], tasks["array"]["task"]
+    same = np.array_equal(loss_rows(a), loss_rows(b)) and all(
+        torch.equal(p, q) for p, q in zip(a.model.parameters(),
+                                          b.model.parameters()))
+    log(f"  Universe-fed task vs its array-fed twin: every metric row and "
+        f"final parameter bit for bit equal: {same}")
+    if not same:
+        raise AssertionError("the Universe-fed task differs from its twin")
+    for r in tasks.values():
+        r["task"].release_device_data()
+
+    # (g) the backbone torsions of the topology, as features of the
+    # selection, on the card against the CPU
+    feats = cvf.ops.backbone_dihedrals(u.atoms)
+    found = {f.name: f.atom_indices for f in feats}
+    if found != {"phi_2": MD_PHI, "psi_2": MD_PSI}:
+        raise AssertionError(f"backbone_dihedrals found {found}")
+    layer = cvf.FeatureLayer(feats, input_ag=sel)
+    x = torch.from_numpy(np.ascontiguousarray(
+        traj.trajectory[:MD_FEATURE_FRAMES]))
+    on_card = layer.to("cuda")(x.cuda()).cpu()
+    on_cpu = layer.to("cpu")(x)
+    feat_err = max_err(on_card, on_cpu)
+    log(f"  backbone_dihedrals: {found}; FeatureLayer on {MD_FEATURE_FRAMES:,}"
+        f" frames, card vs CPU max |diff| {feat_err:.3e} (bar "
+        f"{MD_FEATURE_ATOL})")
+    if on_card.shape != (MD_FEATURE_FRAMES, 4) or not feat_err <= \
+            MD_FEATURE_ATOL:
+        raise AssertionError(f"features {tuple(on_card.shape)}, card vs "
+                             f"CPU {feat_err}")
+    launches = {name: tasks["universe"]["counts"][name]
+                for name in ("fused_align", "stats_fwd", "stats_bwd")}
+    sps = tasks["universe"]["sps"]
+    del decoded, traj, twin_traj, u, tasks, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = dict(
+        frames=n_total, files=MD_FILES, write_s=write_s, file_mb=file_mb,
+        universe_s=universe_s, decode_frames_per_s=n_total / universe_s,
+        decode_mb_per_s=mb / universe_s, weighted_trajectory_s=wt_s,
+        train_samples_per_s=sps, max_abs_xtc_err=err,
+        feature_max_abs_diff=feat_err, launches=launches)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 13 took {out['phase_s']:.1f} s")
+    return out
+
+
+# what each phase takes from an earlier one: phase 4's runs, phase 9's sweeps
+PHASE_NEEDS = {5: {4}, 8: {4}, 9: {4}, 10: {4}, 11: {4, 9}, 12: {4}}
+ALL_PHASES = tuple(range(1, 14))
+
+
+def parse_phases(spec):
+    """The phases a ``--phases`` list names (``1-5,13``), with the phases
+    they need and phases 1-3, which always run."""
+    chosen = {1, 2, 3}
+    for part in spec.split(","):
+        lo, _, hi = part.strip().partition("-")
+        chosen.update(range(int(lo), int(hi or lo) + 1))
+    unknown = chosen - set(ALL_PHASES)
+    if unknown:
+        raise SystemExit(f"chip_smoke: no phase {sorted(unknown)}")
+    for phase in sorted(chosen, reverse=True):
+        chosen |= PHASE_NEEDS.get(phase, set())
+    return chosen
+
+
 def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phases", default=None,
+                    help="run only these phases, e.g. 1-5,13 (phases 1-3 "
+                    "and the phases a chosen one needs always run); the "
+                    "default runs every phase")
+    args = ap.parse_args()
+    phases = (set(ALL_PHASES) if args.phases is None
+              else parse_phases(args.phases))
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA card", file=sys.stderr)
@@ -2993,46 +3335,67 @@ def main():
     log("phase 2-3: kernels against plain versions, and timed")
     kern = phase_kernels(ref, torch.from_numpy(traj_np),
                          torch.from_numpy(w_np), dev, cvf)
-    log("phase 4: training")
-    runs = phase_training(ref, traj_np, w_np, cvf)
+    results = {"card": card}
+    launches = {name: 0 for name in KERNELS}
+    sources = {}
 
-    log(f"phase 5: steady-state training throughput on {card}: fused step "
-        f"(K2+K3+K4) {runs['fused']['sps']:,.0f} samples/s, plain step "
-        f"{runs['plain']['sps']:,.0f} samples/s")
-    prof = phase_profile(runs)
-    log("phase 6: the generator and the committor (Dirichlet form)")
-    dirichlet = phase_dirichlet(card, ref, traj_np, w_np, cvf)
-    log("phase 7: the autoencoder and the regularized autoencoder")
-    autoencoders = phase_autoencoders(card, ref, traj_np, w_np, cvf)
-    log("phase 8: export and deploy")
-    export = phase_export(card, runs, traj_np, cvf)
-    log("phase 9: the replica sweep")
-    sweep, sweep_b = phase_sweep(card, ref, traj_np, w_np, cvf, runs)
-    log("phase 10: streaming from host memory")
-    streaming = phase_streaming(card, ref, traj_np, w_np, cvf, runs)
-    log("phase 11: the data mesh, one rank of an NCCL group")
-    mesh = phase_mesh(card, ref, traj_np, w_np, cvf, runs, sweep, sweep_b)
-    log("phase 12: the samplers")
-    samplers = phase_samplers(card, ref, traj_np, runs, cvf)
-    launches = {"kabsch_qcp": runs["k1"]["counts"]["kabsch_qcp"]}
-    for name in ("fused_align", "stats_fwd", "stats_bwd"):
-        launches[name] = runs["fused"]["counts"][name]
-    # K2 on the main path and on the sweep's (run b's second call)
-    launches["fused_align"] += sweep["b fused f32"]["k2_launches"]
-    # and every streamed call of phase 10, and phase 11's meshed runs
-    for name, n in streaming["launches"].items():
-        launches[name] += n
-    for name, n in mesh["launches"].items():
-        launches[name] += n
-    # and phase 12's metadynamics along the fused CV
-    launches["fused_align"] += samplers["launches"]["fused_align"]
-    log(f"K2 launches: main path {runs['fused']['counts']['fused_align']}, "
-        f"sweep {sweep['b fused f32']['k2_launches']}, streamed "
-        f"{streaming['launches']['fused_align']}, meshed "
-        f"{mesh['launches']['fused_align']}, samplers "
-        f"{samplers['launches']['fused_align']}; K3 streamed "
-        f"{streaming['launches']['stats_fwd']}, K4 streamed "
-        f"{streaming['launches']['stats_bwd']}")
+    def add_launches(label, counts):
+        for name, n in counts.items():
+            launches[name] += n
+        sources[label] = counts
+
+    if 4 in phases:
+        log("phase 4: training")
+        runs = phase_training(ref, traj_np, w_np, cvf)
+        add_launches("main path", {
+            "kabsch_qcp": runs["k1"]["counts"]["kabsch_qcp"],
+            **{name: runs["fused"]["counts"][name]
+               for name in ("fused_align", "stats_fwd", "stats_bwd")}})
+        results["throughput_samples_per_s"] = {
+            "fused": runs["fused"]["sps"], "plain": runs["plain"]["sps"]}
+    if 5 in phases:
+        log(f"phase 5: steady-state training throughput on {card}: fused "
+            f"step (K2+K3+K4) {runs['fused']['sps']:,.0f} samples/s, plain "
+            f"step {runs['plain']['sps']:,.0f} samples/s")
+        results["profile"] = phase_profile(runs)
+    if 6 in phases:
+        log("phase 6: the generator and the committor (Dirichlet form)")
+        results["dirichlet"] = phase_dirichlet(card, ref, traj_np, w_np, cvf)
+    if 7 in phases:
+        log("phase 7: the autoencoder and the regularized autoencoder")
+        results["autoencoders"] = phase_autoencoders(card, ref, traj_np,
+                                                     w_np, cvf)
+    if 8 in phases:
+        log("phase 8: export and deploy")
+        results["export"] = phase_export(card, runs, traj_np, cvf)
+    if 9 in phases:
+        log("phase 9: the replica sweep")
+        sweep, sweep_b = phase_sweep(card, ref, traj_np, w_np, cvf, runs)
+        results["sweep"] = sweep
+        # K2 on the sweep's (run b's second call)
+        add_launches("sweep", {
+            "fused_align": sweep["b fused f32"]["k2_launches"]})
+    if 10 in phases:
+        log("phase 10: streaming from host memory")
+        results["streaming"] = phase_streaming(card, ref, traj_np, w_np,
+                                               cvf, runs)
+        add_launches("streamed", results["streaming"]["launches"])
+    if 11 in phases:
+        log("phase 11: the data mesh, one rank of an NCCL group")
+        results["mesh"] = phase_mesh(card, ref, traj_np, w_np, cvf, runs,
+                                     sweep, sweep_b)
+        add_launches("meshed", results["mesh"]["launches"])
+    if 12 in phases:
+        log("phase 12: the samplers")
+        results["samplers"] = phase_samplers(card, ref, traj_np, runs, cvf)
+        # the metadynamics along the fused CV
+        add_launches("samplers", results["samplers"]["launches"])
+    if 13 in phases:
+        log("phase 13: MD trajectory input")
+        results["md_input"] = phase_md_input(card, cvf)
+        add_launches("MD input", results["md_input"]["launches"])
+    log("launches by phase: " + "; ".join(
+        f"{label} {counts}" for label, counts in sources.items()))
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kern[name]
@@ -3043,20 +3406,9 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
-    log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({
-        "card": card,
-        "throughput_samples_per_s": {"fused": runs["fused"]["sps"],
-                                     "plain": runs["plain"]["sps"]},
-        "profile": prof,
-        "dirichlet": dirichlet,
-        "autoencoders": autoencoders,
-        "export": export,
-        "sweep": sweep,
-        "streaming": streaming,
-        "mesh": mesh,
-        "samplers": samplers,
-    }))
+    log(f"phases {sorted(phases)}: total {time.perf_counter() - t_start:.1f}"
+        " s")
+    print(json.dumps(results))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -13,7 +13,16 @@ from .features import (
     Lambda,
     PreprocessingANN,
     as_pp_layer,
+    bend_angle,
+    bend_angle_cos,
+    bond_length,
+    coordination_pairs,
+    dihedral_angle,
+    dihedral_cos_sin,
+    minimum_image,
+    switching_rational,
 )
+from .builders import backbone_dihedrals, heavy_atom_contacts
 from .fused_eigen import (
     eigen_loss_from_stats,
     params_t_of,
@@ -38,12 +47,22 @@ __all__ = [
     "align_frames",
     "align_frames_fused_cuda",
     "as_pp_layer",
+    "backbone_dihedrals",
+    "bend_angle",
+    "bend_angle_cos",
+    "bond_length",
+    "coordination_pairs",
+    "dihedral_angle",
+    "dihedral_cos_sin",
     "eigen_loss_from_stats",
     "kabsch_rotations_cuda",
     "kabsch_rotations_quat",
     "kabsch_rotations_svd",
+    "heavy_atom_contacts",
+    "minimum_image",
     "params_t_of",
     "stats_layout",
+    "switching_rational",
     "transfer_stats",
     "transfer_stats_reference",
 ]

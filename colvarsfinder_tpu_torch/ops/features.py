@@ -1,5 +1,6 @@
 r"""Molecular feature transforms (port of
-``colvarsfinder_tpu/ops/features.py``).
+``colvarsfinder_tpu/ops/features.py``; ``coordination_pairs`` is copied
+from its :147).
 
 Parameter-free ``nn.Module`` layers mapping coordinates ``[batch, N, 3]`` to
 features ``[batch, d_r]``, differentiable w.r.t. the input. Feature types
@@ -38,6 +39,7 @@ __all__ = [
     "bend_angle",
     "bend_angle_cos",
     "bond_length",
+    "coordination_pairs",
     "dihedral_angle",
     "dihedral_cos_sin",
     "minimum_image",
@@ -112,6 +114,23 @@ def minimum_image(d: torch.Tensor, box) -> torch.Tensor:
     """Minimum-image displacement for an orthogonal box (lengths [3])."""
     b = torch.as_tensor(box, dtype=d.dtype, device=d.device)
     return d - b * torch.round(d / b)
+
+
+def coordination_pairs(group_a, group_b):
+    """Flattened all-cross pair list (i1, j1, i2, j2, ...) between two
+    atom groups, skipping self-pairs — the atom_indices for a
+    ``'coordination'`` Feature with PLUMED ``GROUPA``/``GROUPB``
+    (non-PAIR) semantics. Accepts MDAnalysis AtomGroup-likes."""
+    ga = [int(i) for i in np.asarray(getattr(group_a, "ix", group_a)).reshape(-1)]
+    gb = [int(j) for j in np.asarray(getattr(group_b, "ix", group_b)).reshape(-1)]
+    out = []
+    for i in ga:
+        for j in gb:
+            if i != j:
+                out.extend((i, j))
+    if not out:
+        raise ValueError("coordination_pairs produced an empty pair list")
+    return tuple(out)
 
 
 _FEATURE_ARITY = {

@@ -49,6 +49,7 @@ import torch
 from ..config import resolve_device
 from ..core.task import capture_epoch
 from ..ops import _cuda
+from .trajectory import csv_rows
 
 __all__ = [
     "integrate_sde_overdamped",
@@ -440,8 +441,7 @@ def _write_chains(path: str, traj_name: str, csv_name: str,
                   energies: np.ndarray) -> None:
     """Each chain's trajectory text and Time,Energy CSV, in the JAX
     package's formats: rows ``t x_1 ... x_d`` (``%.3f``, ``%.6f``), and the
-    CSV as pandas' ``to_csv`` writes it (the card machine has no pandas):
-    each float's shortest repr, NaN as an empty field."""
+    CSV as pandas' ``to_csv`` writes it (:func:`.trajectory.csv_rows`)."""
     os.makedirs(path, exist_ok=True)
     traj_fmt = "%.3f" + " %.6f" * frames.shape[2] + "\n"
     for c in range(frames.shape[0]):
@@ -452,12 +452,7 @@ def _write_chains(path: str, traj_name: str, csv_name: str,
         with open(os.path.join(path, _with_suffix(csv_name, suffix)),
                   "w") as f:
             f.write("Time,Energy\n")
-            if np.isnan(energies[c]).any() or np.isnan(times).any():
-                f.writelines(
-                    ",".join("" if v != v else repr(v) for v in row) + "\n"
-                    for row in zip(times.tolist(), energies[c].tolist()))
-            else:
-                f.write(_rows("%r,%r\n", times, energies[c]))
+            f.write(csv_rows(times, energies[c]))
 
 
 def _numpy_grad(pot_obj):

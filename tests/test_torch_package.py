@@ -28,9 +28,13 @@ def test_import_pulls_in_no_jax():
         "import sys, colvarsfinder_tpu_torch as p\n"
         "import colvarsfinder_tpu_torch.utils.sampling\n"
         "import colvarsfinder_tpu_torch.utils.enhanced\n"
+        "from colvarsfinder_tpu_torch.utils import native_io, io, xtc, trr\n"
+        "from colvarsfinder_tpu_torch.utils import netcdf, lammps, h5md\n"
+        "from colvarsfinder_tpu_torch.ops import builders\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'colvarsfinder_tpu'"
-        " or m.startswith('colvarsfinder_tpu.') or m == 'pandas']\n"
+        " or m.startswith('colvarsfinder_tpu.') or m == 'pandas'"
+        " or m == 'h5py']\n"
         "assert not bad, bad\n"
         "print('ok', len(p.__all__))\n"
     )
