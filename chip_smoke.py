@@ -5,8 +5,8 @@
     python3 chip_smoke.py --phases 1-5,13 # chosen phases, while iterating
 
 ``--phases`` runs phases 1-3 always, and with a chosen phase the phases it
-takes results from (phase 4 for 5 and 8-12, phase 9 for 11); the kernels
-line then counts the launches of the phases that ran.
+takes results from (phase 4 for 5, 8-12 and 14, phase 9 for 11); the
+kernels line then counts the launches of the phases that ran.
 
 Phases (each raises on failure; nothing is caught):
 
@@ -163,7 +163,24 @@ Phases (each raises on failure; nothing is caught):
    the card against the CPU on 20,000 frames. Seconds to write each file
    and its MB, decode frames/s and MB/s, WeightedTrajectory seconds and
    training samples/s beside the card's name. Nothing is cut: on an H100
-   the phase takes about 13 s.
+   the phase takes about 13 s;
+14. analysis, autotune and the adaptive loop on phase 4's task: (a)
+   ``tune.autotune`` over the plain step, the fused step (K2, K3, K4), K1's
+   weighted route, bf16 activations and TF32 matmuls, reps 2: no variant
+   skipped, the config restored, each variant's launches per batch equal
+   to phase 4's for its route, the fused step ranked above the plain one;
+   (b) ``workflow.adaptive_cv_discovery`` in phase 12's harmonic well
+   along phase 4's fused task (flat states), three rounds with warm starts
+   and the first two again: K2 per metadynamics step by phase 12's rule,
+   training launches per batch as phase 4's, ``segment_starts`` the
+   cumulative segment lengths, each segment's weights of mean one, every
+   warm start bit for bit the previous round's trained parameters, the
+   rerun bit for bit; (c) ``analysis.cv_sensitivity`` of phase 4's fused
+   CV on 20,000 frames (K2 once a chunk) against the same heads behind the
+   quaternion layer on the card and against the CPU, within K2's gradient
+   bar; (d) the host battery (validate_cv, tica, msm with pcca and mfpt,
+   msm_ck_test, free_energy_profile with a bootstrap) on phase 4's CV
+   values, timed.
 
 The second-to-last line lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -172,6 +189,7 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import math
@@ -357,6 +375,27 @@ MD_RESNAMES = ["ACE"] * 6 + ["ALA"] * 10 + ["NME"] * 6
 # the Ramachandran quadruples of the full topology (examples/dipeptide.py:
 # 48-49)
 MD_PHI, MD_PSI = (4, 6, 8, 14), (6, 8, 14, 16)
+
+# phase 14: the analysis and driver slice. (a) autotune on phase 4's task,
+# TUNE_EPOCHS a train() call, reps 2: the plain step, the fused step (K2,
+# K3, K4), K1's route (phase 4's weighted alignment), bf16 activations and
+# TF32 matmuls; (b) adaptive_cv_discovery in phase 12's harmonic well along
+# phase 4's fused task (flat states, batches of WF_BATCH), three rounds with
+# warm starts at phase 12's metadynamics settings (hills every 50 steps of
+# 0.005, height 0.6, bias factor 8), cut to WF_UNBIASED unbiased and
+# WF_METAD biased steps a round (a biased step runs ~2,500 kernels); (c)
+# cv_sensitivity of phase 4's fused CV on SENS_FRAMES frames, against the
+# plain quaternion layer on the card and against the CPU within K2's
+# gradient bar (tests/test_torch_alignment.py GRAD_TOL: rtol 1e-3, atol
+# 1e-4 of the largest entry); (d) the host battery on phase 4's CV values
+TUNE_EPOCHS, TUNE_REPS = 3, 2
+TUNE_VARIANTS = ({}, {"fused_step": True},
+                 {"method": "cuda", "fused_step": True},
+                 {"compute_dtype": "bfloat16"},
+                 {"matmul_precision": "default"})
+WF_ROUNDS, WF_UNBIASED, WF_METAD, WF_EPOCHS, WF_BATCH = 3, 20_000, 1_500, 4, 100
+SENS_FRAMES, SENS_BATCH = 20_000, 8192
+SENS_RTOL, SENS_ATOL = 1e-3, 1e-4
 
 # the fused run's settings tried besides the defaults (one call each)
 STREAM_VARIANTS = (("1 gather thread", dict(stream_transfer_workers=1)),
@@ -728,12 +767,18 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
 
 def make_task(cvf, traj_obj, ref, path, fused, method, epochs,
               save_every=0, align_weights=None, model_seed=0, lr=LR,
-              alpha=ALPHA, test_ratio=TEST_RATIO, dt=DT, **kw):
+              alpha=ALPHA, test_ratio=TEST_RATIO, dt=DT, batch=BATCH,
+              flat=False, **kw):
     if method == "fused":
         align = cvf.FusedAlignmentLayer(ref, list(range(N_ATOMS)))
     else:
         align = cvf.AlignmentLayer(ref, list(range(N_ATOMS)), method=method,
                                    align_weights=align_weights)
+    if flat:
+        # states of the samplers, [B, 3 N]: frames again before aligning
+        align = torch.nn.Sequential(
+            cvf.ops.Lambda(lambda x: x.reshape(x.shape[0], N_ATOMS, 3)),
+            align)
     pp = cvf.PreprocessingANN(
         align,
         cvf.FeatureLayer([cvf.Feature("p", "position",
@@ -743,7 +788,7 @@ def make_task(cvf, traj_obj, ref, path, fused, method, epochs,
         traj_obj, pp, cvf.EigenFunctions(list(DIMS), K, seed=model_seed),
         path, alpha=alpha, eig_weights=EIG_W, lag_tau=LAG * dt,
         learning_rate=lr, save_model_every_step=save_every, k=K,
-        batch_size=BATCH, num_epochs=epochs, test_ratio=test_ratio,
+        batch_size=batch, num_epochs=epochs, test_ratio=test_ratio,
         verbose=False, tensorboard=False, seed=0, debug_mode=False,
         fused_step=fused, progress_interval=1, **kw,
     )
@@ -3278,9 +3323,300 @@ def phase_md_input(card, cvf):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: analysis, autotune and the adaptive loop on the card
+
+
+def per_batch(counts, task, epochs):
+    """Launches per batch (K2, K3) and per train step (K1 and K4's) of
+    ``epochs`` epochs of ``task``."""
+    nb_train = len(task.loss_list[0][0])
+    nb_all = nb_train + len(task.loss_list[0][1])
+    return {"kabsch_qcp": counts["kabsch_qcp"] / (epochs * nb_all),
+            "fused_align": counts["fused_align"] / (epochs * nb_all),
+            "stats_fwd": counts["stats_fwd"] / (epochs * nb_all),
+            "stats_bwd": counts["stats_bwd"] / (epochs * nb_train)}
+
+
+def counting_train(task, log_to):
+    """Wrap ``task.train`` to append each call's launches to ``log_to``."""
+    from colvarsfinder_tpu_torch.ops import _cuda
+
+    real = task.train
+
+    def train():
+        before = _cuda.launch_counts()
+        real()
+        after = _cuda.launch_counts()
+        log_to.append({k: after[k] - before[k] for k in after})
+
+    task.train = train
+    return task
+
+
+def phase_drivers(card, ref, traj_np, w_np, cvf, runs):
+    """Phase 14: autotune over the kernel knobs, the adaptive loop, input
+    sensitivities through K2 and the host-side validation battery."""
+    from colvarsfinder_tpu_torch import analysis, config, tune, workflow
+    from colvarsfinder_tpu_torch.ops import _cuda
+
+    t_phase = time.perf_counter()
+    out = {}
+    _cuda.reset_launch_counts()
+    phase4 = {label: per_batch(runs[label]["counts"], runs[label]["task"],
+                               runs[label]["epochs"])
+              for label in ("fused", "k1", "plain")}
+    traj_obj = cvf.WeightedTrajectory(trajectory=traj_np, weights=w_np,
+                                      dt=DT, verbose=False)
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+
+    # (a) autotune: each variant's launches per batch against phase 4's
+    # route, the config restored, nothing skipped
+    t0 = time.perf_counter()
+    tune_counts = {}
+
+    def factory(fused_step=False, method=None):
+        method = method or ("fused" if fused_step else "quaternion")
+        key = (bool(fused_step), method)
+        task = make_task(cvf, traj_obj, ref, f"{tmp}/tune{len(tune_counts)}",
+                         fused_step, method, TUNE_EPOCHS,
+                         align_weights=ALIGN_WEIGHTS if method == "cuda"
+                         else None)
+        return counting_train(task, tune_counts.setdefault(key, []))
+
+    before = (config.matmul_precision(), config.compute_dtype_name(),
+              config.bf16_style())
+    ranking = tune.autotune(factory, TUNE_VARIANTS, reps=TUNE_REPS)
+    after = (config.matmul_precision(), config.compute_dtype_name(),
+             config.bf16_style())
+    if after != before:
+        raise AssertionError(f"autotune left the config {after}, not {before}")
+    if len(ranking) != len(TUNE_VARIANTS):
+        raise AssertionError(f"autotune skipped a variant: {len(ranking)} of "
+                             f"{len(TUNE_VARIANTS)} ran")
+    routes = {(False, "quaternion"): "plain", (True, "fused"): "fused",
+              (True, "cuda"): "k1"}
+    for key, calls in tune_counts.items():
+        # every train() call of every variant on this route, a fresh task
+        # per variant: TUNE_REPS + 1 calls of TUNE_EPOCHS each
+        task_calls = len(calls)
+        total = {k: sum(c[k] for c in calls) for k in calls[0]}
+        nb_task = runs[routes[key]]["task"]
+        got = per_batch(total, nb_task, TUNE_EPOCHS * task_calls)
+        if got != phase4[routes[key]]:
+            raise AssertionError(f"autotune route {key}: launches per batch "
+                                 f"{got}, phase 4's {phase4[routes[key]]}")
+    order = [r.overrides for r in ranking]
+    if not order.index({"fused_step": True}) < order.index({}):
+        raise AssertionError(f"the fused step ranks below the plain one: "
+                             f"{order}")
+    out["autotune"] = dict(
+        ranking=[dict(overrides=r.overrides, best_s=r.best_seconds,
+                      speedup=r.speedup, final_loss=r.final_train_loss)
+                 for r in ranking],
+        launches_per_batch={routes[k]: phase4[routes[k]] for k in tune_counts},
+        seconds=time.perf_counter() - t0)
+    log(f"  a autotune ({TUNE_EPOCHS} epochs a call, reps {TUNE_REPS}) on "
+        f"{card}, fastest first:")
+    for r in ranking:
+        log(f"    {r.speedup:6.2f}x  {r.best_seconds:.4f} s  loss "
+            f"{r.final_train_loss:.5f}  {r.overrides or '{plain}'}")
+    log(f"  a launches per batch equal to phase 4's route for every variant; "
+        f"config restored {after}; {out['autotune']['seconds']:.1f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the adaptive loop along phase 4's fused task in the harmonic well
+    t0 = time.perf_counter()
+    # every round's task in order (both runs), its train() launches and the
+    # parameters it entered train() with
+    tasks, calls, entry, metad_counts = [], [], [], []
+
+    def wf_task(traj, r):
+        task = make_task(cvf, traj, ref, f"{tmp}/wf{len(tasks)}", True,
+                         "fused", WF_EPOCHS, dt=traj.dt, batch=WF_BATCH,
+                         test_ratio=0.2, flat=True, model_seed=r)
+        tasks.append(task)
+        calls.append([])
+        counting_train(task, calls[-1])
+        counted = task.train
+
+        def train():
+            entry.append([p.detach().clone() for p in task.model.parameters()])
+            counted()
+
+        task.train = train
+        return task
+
+    real_metad = workflow.integrate_sde_metadynamics
+
+    def counted_metad(*a, **k):
+        before = _cuda.launch_counts()["fused_align"]
+        res = real_metad(*a, **k)
+        metad_counts.append((_cuda.launch_counts()["fused_align"] - before,
+                             k["n_steps"], k["deposit_interval"]))
+        return res
+
+    wf_kw = dict(X0=ref.reshape(-1).astype(np.float64),
+                 unbiased_steps=WF_UNBIASED, metad_steps=WF_METAD,
+                 step_size=METAD_DT, frame_interval=METAD_DEPOSIT,
+                 hill_height=METAD_HEIGHT, bias_factor=METAD_GAMMA,
+                 warm_start=True, seed=5, verbose=True, device="cuda")
+    workflow.integrate_sde_metadynamics = counted_metad
+    try:
+        res = workflow.adaptive_cv_discovery(
+            HarmonicWell(ref), wf_task, n_rounds=WF_ROUNDS,
+            output_path=f"{tmp}/adaptive", **wf_kw)
+        rerun = workflow.adaptive_cv_discovery(
+            HarmonicWell(ref), wf_task, n_rounds=2,
+            output_path=f"{tmp}/adaptive_again", **wf_kw)
+    finally:
+        workflow.integrate_sde_metadynamics = real_metad
+    wf_s = time.perf_counter() - t0
+    for n_k2, steps, deposit in metad_counts:
+        # one a step, one a deposition, one to size the CV (phase 12)
+        if n_k2 != steps + steps // deposit + 1:
+            raise AssertionError(f"b metadynamics: K2 {n_k2} launches over "
+                                 f"{steps} steps")
+    k2_per_step = metad_counts[0][0] / metad_counts[0][1]
+    for task, task_calls in zip(tasks, calls):
+        got = per_batch(task_calls[0], task, WF_EPOCHS)
+        if got != phase4["fused"]:
+            raise AssertionError(f"b training launches per batch {got}, "
+                                 f"phase 4's {phase4['fused']}")
+    lengths = [r.segment.n_frames for r in res.rounds]
+    if list(res.pooled.segment_starts) != list(np.cumsum([0] + lengths[:-1])):
+        raise AssertionError(f"pooled segment_starts "
+                             f"{res.pooled.segment_starts}, lengths {lengths}")
+    means = [float(r.segment.weights.mean()) for r in res.rounds]
+    if not all(abs(m - 1.0) < 1e-5 for m in means):
+        raise AssertionError(f"segment weights' means {means}")
+    # rounds 1.. of each run start from the previous round's trained
+    # parameters (tasks WF_ROUNDS and WF_ROUNDS + 1 are the rerun's)
+    warm_pairs = [(i, i - 1) for i in range(1, len(tasks)) if i != WF_ROUNDS]
+    warm = all(torch.equal(a, b) for i, j in warm_pairs
+               for a, b in zip(entry[i], tasks[j].model.parameters()))
+    if not warm:
+        raise AssertionError("a warm-started round did not start from the "
+                             "previous round's trained parameters")
+    same = all(
+        np.array_equal(a.segment.trajectory, b.segment.trajectory)
+        and np.array_equal(a.segment.weights, b.segment.weights)
+        and np.array_equal(a.task.train_loss, b.task.train_loss)
+        and all(torch.equal(p, q) for p, q in zip(a.task.model.parameters(),
+                                                  b.task.model.parameters()))
+        for a, b in zip(res.rounds[:2], rerun.rounds))
+    if not same:
+        raise AssertionError("the adaptive loop's rerun differs")
+    spans = res.cv_range_per_round()
+    if not np.isfinite(spans).all():
+        raise AssertionError(f"cv_range_per_round {spans}")
+    out["adaptive"] = dict(
+        rounds=WF_ROUNDS, frames=lengths, seconds=wf_s,
+        k2_per_metad_step=k2_per_step, phase12_k2_per_step=(
+            METAD_STEPS + METAD_STEPS // METAD_DEPOSIT + 1) / METAD_STEPS,
+        launches_per_batch=phase4["fused"], cv_range_per_round=spans.tolist(),
+        final_losses=[float(r.task.train_loss[-1, 0]) for r in res.rounds])
+    log(f"  b adaptive_cv_discovery, {WF_ROUNDS} rounds ({WF_UNBIASED:,} "
+        f"unbiased, {WF_METAD:,} biased steps a round, warm starts) and the "
+        f"first two again: {wf_s:.1f} s on {card}; frames {lengths}; K2 "
+        f"{k2_per_step:.4f} per metadynamics step (phase 12's rule, "
+        f"{out['adaptive']['phase12_k2_per_step']:.4f} at its 4,000 steps); "
+        f"training launches per batch as phase 4's; segment_starts "
+        f"{res.pooled.segment_starts.tolist()}; weight means {means}; warm "
+        f"starts bit for bit: {warm}; rerun bit for bit: {same}; CV range "
+        f"per round {np.round(spans[:, 0], 4).tolist()}")
+    for task in tasks:
+        task.release_device_data()
+    del rerun, res, tasks, entry
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) input sensitivities of phase 4's fused CV through K2, against
+    # the plain layer on the card and against the CPU
+    cv = runs["fused"]["task"].colvar_model()
+    frames = traj_np[:SENS_FRAMES]
+    weights = w_np[:SENS_FRAMES]
+    before = _cuda.launch_counts()["fused_align"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sens = analysis.cv_sensitivity(cv, frames, weights=weights,
+                                   aggregate="xyz", batch_size=SENS_BATCH)
+    sens_s = time.perf_counter() - t0
+    k2 = _cuda.launch_counts()["fused_align"] - before
+    chunks = -(-SENS_FRAMES // SENS_BATCH)
+    if k2 != chunks:
+        raise AssertionError(f"c: K2 launched {k2} times, {chunks} chunks")
+    pp = cvf.PreprocessingANN(
+        cvf.AlignmentLayer(ref, list(range(N_ATOMS)), method="quaternion"),
+        cvf.FeatureLayer([cvf.Feature("p", "position",
+                                      list(range(N_ATOMS)))]))
+    plain_cv = cvf.ColvarModel(pp, cv.head).cuda()
+    plain = analysis.cv_sensitivity(plain_cv, frames, weights=weights,
+                                    aggregate="xyz", batch_size=SENS_BATCH)
+    cpu = analysis.cv_sensitivity(copy.deepcopy(cv).cpu(), frames,
+                                  weights=weights, aggregate="xyz",
+                                  batch_size=SENS_BATCH)
+    gaps = {}
+    for label, other in (("plain layer", plain), ("cpu", cpu)):
+        scale = float(np.abs(other.sensitivity).max())
+        err = np.abs(sens.sensitivity - other.sensitivity)
+        gaps[label] = float((err / (SENS_ATOL * scale
+                                    + SENS_RTOL * np.abs(other.sensitivity)))
+                            .max())
+        if not gaps[label] <= 1.0:
+            raise AssertionError(f"c: sensitivities against the {label} "
+                                 f"reach {gaps[label]:.3f} of the bar")
+    out["sensitivity"] = dict(frames=SENS_FRAMES, seconds=sens_s,
+                              k2_launches=k2, bar_fraction=gaps,
+                              top=sens.top(0, 3))
+    log(f"  c cv_sensitivity of phase 4's fused CV on {SENS_FRAMES:,} frames "
+        f"(xyz): {sens_s:.3f} s on {card}, K2 launched {k2} times (one a "
+        f"chunk of {SENS_BATCH}); largest gap as a fraction of the bar "
+        f"(rtol {SENS_RTOL}, atol {SENS_ATOL} of the largest entry): "
+        f"{gaps}; top atoms of CV 1 {sens.top(0, 3)}")
+
+    # (d) the host battery on phase 4's CV values, timed
+    y = analysis._cv_on_numpy(cv, traj_np)
+    battery = {}
+
+    def timed(name, fn):
+        t1 = time.perf_counter()
+        res = fn()
+        battery[name] = time.perf_counter() - t1
+        return res
+
+    val = timed("validate_cv", lambda: analysis.validate_cv(
+        y, lag=LAG, dt=DT, weights=w_np))
+    timed("tica", lambda: analysis.tica(y, lag=LAG, weights=w_np))
+    assign, _ = timed("discretize", lambda: analysis.discretize(y[:, 0], 40))
+    model = timed("msm", lambda: analysis.msm(assign, lag=LAG, n_states=40,
+                                             weights=w_np))
+    timed("pcca", lambda: model.pcca(2))
+    mfpt = timed("mfpt", lambda: model.mfpt(
+        [int(np.argmax(model.stationary))], dt=DT))
+    timed("msm_ck_test", lambda: analysis.msm_ck_test(
+        assign, lag=LAG, n_sets=2, n_states=40, weights=w_np))
+    fes = timed("free_energy_profile", lambda: analysis.free_energy_profile(
+        y[:, 0], weights=w_np, bins=40, n_bootstrap=16, block_frames=100))
+    if not (np.isfinite(fes[1]).any() and np.isfinite(mfpt).any()):
+        raise AssertionError("d: no finite free energy or MFPT")
+    out["battery_s"] = battery
+    log(f"  d host battery on {len(y):,} CV values (seconds, host numpy): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in battery.items())
+        + f"; validate_cv {val!r}".replace("\n", " "))
+    tmp_dir.cleanup()
+    out["launches"] = _cuda.launch_counts()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 14 took {out['phase_s']:.1f} s")
+    return out
+
+
 # what each phase takes from an earlier one: phase 4's runs, phase 9's sweeps
-PHASE_NEEDS = {5: {4}, 8: {4}, 9: {4}, 10: {4}, 11: {4, 9}, 12: {4}}
-ALL_PHASES = tuple(range(1, 14))
+PHASE_NEEDS = {5: {4}, 8: {4}, 9: {4}, 10: {4}, 11: {4, 9}, 12: {4},
+               14: {4}}
+ALL_PHASES = tuple(range(1, 15))
 
 
 def parse_phases(spec):
@@ -3394,6 +3730,11 @@ def main():
         log("phase 13: MD trajectory input")
         results["md_input"] = phase_md_input(card, cvf)
         add_launches("MD input", results["md_input"]["launches"])
+    if 14 in phases:
+        log("phase 14: analysis, autotune and the adaptive loop")
+        results["drivers"] = phase_drivers(card, ref, traj_np, w_np, cvf,
+                                           runs)
+        add_launches("drivers", results["drivers"]["launches"])
     log("launches by phase: " + "; ".join(
         f"{label} {counts}" for label, counts in sources.items()))
     rows = []

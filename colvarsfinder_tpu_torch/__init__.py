@@ -3,15 +3,28 @@ r"""colvarsfinder-tpu, PyTorch/CUDA port.
 A second package beside the JAX reference ``colvarsfinder_tpu``: the same
 API for eigenfunction training (generator and transfer operator),
 committor training, (regularized) autoencoder training and replica
-sweeps of them (``parallel``), written in
-PyTorch, with the JAX package's four Pallas TPU kernels rewritten as CUDA
+sweeps of them (``parallel``), the validation battery of a trained CV
+(``analysis``), its figures (``plotting``, with matplotlib), the knob
+autotuner (``tune``) and the adaptive sample/train/bias loop
+(``workflow``), written in PyTorch, with the JAX package's four Pallas TPU kernels rewritten as CUDA
 kernels for Hopper (``csrc/``). It imports neither JAX nor the JAX
 package. Entry points run on ``cuda`` unless the caller passes
 ``device='cpu'``; on CPU tensors every kernel wrapper runs its plain
 PyTorch version.
 """
 
-from . import config, core, models, ops, parallel, utils
+from . import (
+    analysis,
+    config,
+    core,
+    models,
+    ops,
+    parallel,
+    plotting,
+    tune,
+    utils,
+    workflow,
+)
 from .core import (
     AutoEncoderTask,
     CommittorTask,
@@ -72,10 +85,14 @@ __all__ = [
     "torchscript_from_numpy_cv",
     "write_plumed_cv",
     "write_plumed_metad",
+    "analysis",
     "config",
     "core",
     "models",
     "ops",
     "parallel",
+    "plotting",
+    "tune",
     "utils",
+    "workflow",
 ]

@@ -31,6 +31,7 @@ __all__ = [
 
 _NAMES = {
     "default": "medium",
+    "medium": "medium",
     "bfloat16": "medium",
     "high": "high",
     "highest": "highest",
@@ -42,14 +43,18 @@ def set_matmul_precision(precision: str) -> None:
     """Set float32 contraction precision.
 
     Accepts 'default' | 'high' | 'highest' | 'bfloat16' | 'float32' (the
-    names of the JAX package). 'highest'/'float32' is full float32 and
-    turns TF32 off for both cuBLAS and cuDNN.
+    names of the JAX package), and 'medium' (what :func:`matmul_precision`
+    returns for 'default'). 'highest'/'float32' is full float32 and turns
+    TF32 off for both cuBLAS and cuDNN.
+
+    cuBLAS follows ``torch.set_float32_matmul_precision`` alone: setting
+    its legacy ``allow_tf32`` flag beside it makes torch's precision getter
+    raise. cuDNN keeps its legacy flag, which ``torch.export`` reads (its
+    per-operator ``fp32_precision`` flags make that getter raise).
     """
     name = _NAMES[precision.lower()]
     torch.set_float32_matmul_precision(name)
-    full = name == "highest"
-    torch.backends.cuda.matmul.allow_tf32 = not full
-    torch.backends.cudnn.allow_tf32 = not full
+    torch.backends.cudnn.allow_tf32 = name != "highest"
 
 
 def matmul_precision() -> str:

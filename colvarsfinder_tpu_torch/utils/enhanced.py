@@ -40,6 +40,7 @@ The result dataclasses, :func:`mbar_weights` (but for the evaluation of
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import os
 import warnings
 from typing import Callable, Optional
@@ -129,22 +130,49 @@ def _hill_energy(s, centers, heights, inv_two_sigma2):
     return torch.sum(heights * torch.exp(-d2 * inv_two_sigma2), dim=-1)
 
 
+def _module_placement(cv_model):
+    """``(device, dtype)`` of a module's first floating parameter or
+    buffer, or None (not a module, or nothing floating in it)."""
+    if isinstance(cv_model, torch.nn.Module):
+        for t in itertools.chain(cv_model.parameters(), cv_model.buffers()):
+            if t.is_floating_point():
+                return t.device, t.dtype
+    return None
+
+
+def _module_dtype(cv_model) -> Optional[torch.dtype]:
+    """The dtype a module computes in, or None."""
+    placement = _module_placement(cv_model)
+    return None if placement is None else placement[1]
+
+
 def _cv_fn(cv_model):
-    """The CV of a chain batch ``[c, dim] -> [c, k]`` in float32."""
+    """The CV of a chain batch ``[c, dim] -> [c, k]`` in float32. A module
+    takes the float32 chains in its own dtype (a float64 CV, as the JAX
+    package promotes)."""
+    dtype = _module_dtype(cv_model)
+
     def cv_fn(x):
-        return torch.as_tensor(cv_model(x)).to(torch.float32).reshape(
+        xin = x if dtype is None else x.to(dtype)
+        return torch.as_tensor(cv_model(xin)).to(torch.float32).reshape(
             x.shape[0], -1)
 
     return cv_fn
 
 
-def _eval_cv(cv_fn, flat: np.ndarray, device) -> np.ndarray:
-    """The CV of states ``[n, dim]`` on the device, in chunks."""
+def _eval_cv(cv_fn, flat: np.ndarray, device,
+             dtype: torch.dtype = torch.float32) -> np.ndarray:
+    """The CV of states ``[n, ...]`` on the device in ``dtype``, without
+    grad, in chunks (also the analysis, plotting and workflow modules' way
+    to evaluate a torch CV on numpy frames)."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     out = []
     with torch.no_grad():
         for lo in range(0, flat.shape[0], _sampling._EVAL_CHUNK):
-            x = _chains(flat[lo:lo + _sampling._EVAL_CHUNK], device)
-            out.append(cv_fn(x).cpu().numpy())
+            x = torch.from_numpy(np.array(
+                flat[lo:lo + _sampling._EVAL_CHUNK], dtype=np_dtype)
+            ).to(device)
+            out.append(torch.as_tensor(cv_fn(x)).cpu().numpy())
     return np.concatenate(out, axis=0)
 
 

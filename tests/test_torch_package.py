@@ -31,6 +31,8 @@ def test_import_pulls_in_no_jax():
         "from colvarsfinder_tpu_torch.utils import native_io, io, xtc, trr\n"
         "from colvarsfinder_tpu_torch.utils import netcdf, lammps, h5md\n"
         "from colvarsfinder_tpu_torch.ops import builders\n"
+        "from colvarsfinder_tpu_torch import analysis, plotting, tune\n"
+        "from colvarsfinder_tpu_torch import workflow\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'jaxlib' or m == 'colvarsfinder_tpu'"
         " or m.startswith('colvarsfinder_tpu.') or m == 'pandas'"
@@ -50,7 +52,9 @@ def test_no_source_names_jax_or_the_jax_package():
         r"|from colvarsfinder_tpu\b(?!_torch))|colvarsfinder_tpu\.",
         re.M,
     )
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    examples = sorted((REPO / "examples" / "torch").glob("*.py"))
+    assert len(examples) == 7
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
     assert len(files) > 15
     for f in files:
         hits = pattern.findall(f.read_text())
