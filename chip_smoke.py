@@ -5,7 +5,7 @@
     python3 chip_smoke.py --phases 1-5,13 # chosen phases, while iterating
 
 ``--phases`` runs phases 1-3 always, and with a chosen phase the phases it
-takes results from (phase 4 for 5, 8-12 and 14, phase 9 for 11); the
+takes results from (phase 4 for 5, 8-12, 14 and 15, phase 9 for 11); the
 kernels line then counts the launches of the phases that ran.
 
 Phases (each raises on failure; nothing is caught):
@@ -180,7 +180,20 @@ Phases (each raises on failure; nothing is caught):
    quaternion layer on the card and against the CPU, within K2's gradient
    bar; (d) the host battery (validate_cv, tica, msm with pcca and mfpt,
    msm_ck_test, free_energy_profile with a bootstrap) on phase 4's CV
-   values, timed.
+   values, timed;
+15. ``mesh=`` of the four enhanced samplers at one rank of an NCCL group
+   (a fresh ``file://`` rendezvous): (a) phase 12 (c)'s metadynamics of
+   64 walkers along phase 4's fused CV (K2 in every step), cut to 1,000
+   steps; (b) 16 umbrella windows along the triple well's angle, then
+   MBAR, and (c) 16 steered pulls, both cut to 5,000 steps; (d) replica
+   exchange on phase 12 (e)'s
+   ladder, exchanges every 200 steps. Each runs meshed and unmeshed with
+   the same seed, bit for bit (arrays and output files), timed, with the
+   meshed call's graph replays per block; a short meshed call of each
+   under torch.profiler gives the NCCL kernels and device copies of its
+   final all-gather (and each exchange's, beside the same call unmeshed);
+   the meshed replica exchange's first blocks (its all-gather inside each
+   captured exchange block) bit for bit its eager twin.
 
 The second-to-last line lists the kernels as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a card, or without the package
@@ -355,6 +368,14 @@ WRITE_CHAINS = 128
 # versions of the run (the svd layer against the quaternion layer, measured
 # in the same call), and never below METAD_RTOL_FLOOR (8 float32 ulps)
 METAD_HELD_BLOCKS, METAD_RTOL_FLOOR = 2, 1e-6
+# phase 15: phase 12's samplers with mesh= at one rank, cut to fit 45 s:
+# (a) metadynamics 4,000 -> 1,000 steps (20 depositions), (b) umbrella
+# and (c) steered 30,000 -> 5,000 steps, (d) replica exchange 200,000 ->
+# 20,000 steps (100 exchanges); the profiled calls: (a) two deposition
+# blocks of one step, (b) PROFILE_BLOCKS report blocks, (c) two blocks of
+# 20 steps, (d) MESH_REMD_EXCHANGES exchanges, one every other block
+MESH_METAD_STEPS, MESH_UMB_STEPS, MESH_REMD_STEPS = 1_000, 5_000, 20_000
+MESH_REMD_EXCHANGES = 2
 
 # phase 13: the reference's MD workflow (examples/dipeptide.py:214-246,
 # SURVEY.md row 11): a 22-atom ACE-ALA-NME topology (the atoms and residues
@@ -3613,10 +3634,292 @@ def phase_drivers(card, ref, traj_np, w_np, cvf, runs):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the enhanced samplers on a mesh of one NCCL rank
+
+
+def same_dirs(a, b):
+    """Two directories hold the same files, byte for byte."""
+    names = sorted(os.listdir(a))
+    return names == sorted(os.listdir(b)) and all(
+        open(os.path.join(a, n), "rb").read()
+        == open(os.path.join(b, n), "rb").read() for n in names)
+
+
+def mesh_twins(label, call, chains, steps, blocks, mesh, card, short_over,
+               tmp=None, exchanges=0):
+    """Phase 15's measurements of one sampler: ``call(**over)`` unmeshed
+    and with ``mesh=`` (the same seed), each timed; every array of the two
+    results, and the files they wrote under ``tmp``, bit for bit equal; K2
+    launches and graph replays (``_cuda.replay`` calls) of the meshed call
+    over its ``blocks`` blocks. A short meshed call with ``short_over``
+    under torch.profiler: NCCL's kernels and the device copies of its one
+    final all-gather (and its ``exchanges`` exchange blocks' all-gathers).
+    With exchanges, the same short call unmeshed too: what the mesh adds
+    (device copies, activities and device time), per exchange."""
+    from colvarsfinder_tpu_torch.ops import _cuda
+
+    replay, replays = _cuda.replay, [0]
+
+    def counted(graph, launches):
+        replays[0] += 1
+        replay(graph, launches)
+
+    got = {}
+    for tag, over in (("unmeshed", {}), ("meshed", {"mesh": mesh})):
+        if tmp is not None:
+            over["sampling_output_path"] = f"{tmp}/{label}-{tag}"
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        _cuda.replay = counted if tag == "meshed" else replay
+        try:
+            t0 = time.perf_counter()
+            res = call(**over)
+            torch.cuda.synchronize()
+        finally:
+            _cuda.replay = replay
+        got[tag] = (res, time.perf_counter() - t0, _cuda.launch_counts())
+    a, b = (result_arrays(got[t][0]) for t in ("unmeshed", "meshed"))
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in a)
+    files = tmp is None or same_dirs(f"{tmp}/{label}-unmeshed",
+                                     f"{tmp}/{label}-meshed")
+    if not (same and files):
+        gaps = {k: float(np.abs(np.asarray(a[k], np.float64)
+                                - np.asarray(b[k], np.float64)).max())
+                for k in a if k in b}
+        raise AssertionError(f"{label}: the meshed run differs from the "
+                             f"unmeshed one (files equal: {files}; max gaps "
+                             f"{gaps})")
+    prof_rows = {}
+    t0 = time.perf_counter()
+    for tag in ("meshed", "unmeshed") if exchanges else ("meshed",):
+        over = {"mesh": mesh} if tag == "meshed" else {}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call(**over, **short_over)
+            torch.cuda.synchronize()
+        acts = device_activities(prof)
+        prof_rows[tag] = dict(
+            nccl={e.key: [e.count, e.self_device_time_total] for e in acts
+                  if any(n in e.key.lower() for n in NCCL_KERNEL_NAMES)},
+            copies={e.key: [e.count, e.self_device_time_total] for e in acts
+                    if "memcpy dtod" in e.key.lower()},
+            device_us=sum(e.self_device_time_total for e in acts),
+            activities=sum(e.count for e in acts))
+    profiled_s = time.perf_counter() - t0
+    pm = prof_rows["meshed"]
+    walls = {t: got[t][1] for t in got}
+    row = dict(
+        chains=chains, steps=steps, blocks=blocks, wall_s=walls,
+        chain_steps_per_s={t: chains * steps / w for t, w in walls.items()},
+        launches=got["meshed"][2], bitwise=same, files_bitwise=files,
+        graph_replays_per_block=replays[0] / blocks,
+        nccl_kernels_per_call=sum(c for c, _ in pm["nccl"].values()),
+        nccl_us_per_call=sum(u for _, u in pm["nccl"].values()),
+        profiled=prof_rows, profiled_s=profiled_s,
+        profiled_call={k: v for k, v in short_over.items()
+                       if np.isscalar(v)})
+    row["vs_unmeshed"] = (row["chain_steps_per_s"]["meshed"]
+                          / row["chain_steps_per_s"]["unmeshed"])
+    log(f"  {label}: {chains} x {steps:,} steps, unmeshed "
+        f"{row['chain_steps_per_s']['unmeshed']:,.0f} chain-steps/s "
+        f"({walls['unmeshed']:.2f} s), meshed "
+        f"{row['chain_steps_per_s']['meshed']:,.0f} ({walls['meshed']:.2f} "
+        f"s, {100 * row['vs_unmeshed']:.1f}%); arrays bit for bit: {same}, "
+        f"files bit for bit: {files}; meshed call: launches "
+        f"{got['meshed'][2]}, {replays[0]} graph replays over {blocks} "
+        f"blocks ({row['graph_replays_per_block']:.3f} per block) ({card})")
+    log(f"    profiled meshed call {row['profiled_call']} ({profiled_s:.2f} "
+        f"s): NCCL kernels {pm['nccl']} (count, device us), device copies "
+        f"{pm['copies']}")
+    if exchanges:
+        pu = prof_rows["unmeshed"]
+        added = dict(
+            nccl_kernels=row["nccl_kernels_per_call"],
+            copies=(sum(c for c, _ in pm["copies"].values())
+                    - sum(c for c, _ in pu["copies"].values())),
+            copies_us=(sum(u for _, u in pm["copies"].values())
+                       - sum(u for _, u in pu["copies"].values())),
+            activities=pm["activities"] - pu["activities"],
+            device_us=pm["device_us"] - pu["device_us"])
+        row["added_by_mesh_per_exchange"] = {k: v / exchanges
+                                             for k, v in added.items()}
+        log(f"    what the mesh adds to the profiled call, per exchange "
+            f"(with the call's one final gather and each block's copy of "
+            f"its increments): {row['added_by_mesh_per_exchange']}")
+    return got["meshed"][0], row
+
+
+def phase_mesh_samplers(card, ref, traj_np, runs, cvf):
+    """Phase 15: the four enhanced samplers with ``mesh=`` at one rank of
+    an NCCL group, each bit for bit its unmeshed twin."""
+    import torch.distributed as dist
+
+    from colvarsfinder_tpu_torch.parallel import make_data_mesh
+    from colvarsfinder_tpu_torch.utils import (
+        integrate_sde_metadynamics,
+        integrate_sde_remd,
+        integrate_sde_steered,
+        integrate_sde_umbrella,
+    )
+
+    t_phase = time.perf_counter()
+    for r in runs.values():
+        r["task"].release_device_data()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    out = {}
+    init = os.path.join(tempfile.gettempdir(), f"cvf_mesh15_{os.getpid()}")
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    try:
+        mesh = make_data_mesh()
+        log(f"  {mesh}: backend {dist.get_backend()}, NCCL "
+            f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+
+        # (a) metadynamics along phase 4's fused CV, phase 12 (c)'s settings
+        cv = runs["fused"]["task"].colvar_model()
+
+        def flat_cv(x):
+            return cv(x.reshape(-1, N_ATOMS, 3))
+
+        with torch.no_grad():
+            sample = torch.from_numpy(traj_np[:BATCH]).cuda()
+            width = METAD_WIDTH_STD * float(cv(sample).std())
+        x0 = (ref.reshape(-1)[None] + 0.3 * np.random.default_rng(
+            12).standard_normal((METAD_WALKERS, 3 * N_ATOMS))).astype(
+                np.float32)
+
+        def metad(**over):
+            kw = dict(n_steps=MESH_METAD_STEPS, deposit_interval=METAD_DEPOSIT,
+                      step_size=METAD_DT, hill_height=METAD_HEIGHT,
+                      hill_width=width, bias_factor=METAD_GAMMA,
+                      n_chains=METAD_WALKERS, X0=x0, seed=11, verbose=False,
+                      device=dev)
+            kw.update(over)
+            return integrate_sde_metadynamics(HarmonicWell(ref), flat_cv,
+                                              **kw)
+
+        _, row = mesh_twins(
+            "a metadynamics through K2", metad, METAD_WALKERS,
+            MESH_METAD_STEPS, MESH_METAD_STEPS // METAD_DEPOSIT, mesh, card,
+            dict(n_steps=2, deposit_interval=1), tmp=tmp)
+        row["k2_per_step"] = row["launches"]["fused_align"] / MESH_METAD_STEPS
+        log(f"  a: K2 {row['launches']['fused_align']} launches in the "
+            f"meshed call, {row['k2_per_step']:.4f} per step")
+        if row["k2_per_step"] < 1:
+            raise AssertionError("meshed metadynamics along the fused CV did "
+                                 "not launch K2 in every step")
+        out["a metadynamics"] = row
+
+        # (b) umbrella windows and MBAR, (c) steered pulls: phase 12 (d)
+        centers = np.linspace(*UMB_RANGE, UMB_WINDOWS)
+        kappa = 4.0 / (SAMPLER_BETA * (centers[1] - centers[0]) ** 2)
+        starts = np.stack([np.cos(centers), np.sin(centers)], axis=1)
+
+        def umbrella(**over):
+            kw = dict(n_steps=MESH_UMB_STEPS, X0=starts, pre_steps=UMB_PRE,
+                      step_size=UMB_DT, report_interval=UMB_REPORT, seed=11,
+                      verbose=False, device=dev)
+            kw.update(over)
+            return integrate_sde_umbrella(TripleWellCircle(), angle_cv,
+                                          centers, kappa, **kw)
+
+        umb, row = mesh_twins(
+            "b umbrella", umbrella, UMB_WINDOWS, MESH_UMB_STEPS,
+            (UMB_PRE + MESH_UMB_STEPS) // UMB_REPORT, mesh, card,
+            dict(n_steps=PROFILE_BLOCKS * UMB_REPORT, pre_steps=0), tmp=tmp)
+        t0 = time.perf_counter()
+        mb = umb.mbar()
+        row["mbar_s"] = time.perf_counter() - t0
+        w = np.concatenate(mb.weights)
+        row.update(mbar_converged=bool(mb.converged),
+                   window_free_energies=mb.free_energies.tolist())
+        log(f"  b: MBAR over the meshed windows' {w.size} frames in "
+            f"{row['mbar_s']:.2f} s, converged {mb.converged}, free "
+            f"energies {np.round(mb.free_energies, 2).tolist()} kT")
+        if not (mb.converged and np.isfinite(w).all()):
+            raise AssertionError("b: MBAR of the meshed windows failed")
+        out["b umbrella"] = row
+
+        def pull(**over):
+            kw = dict(n_steps=MESH_UMB_STEPS, n_realizations=UMB_WINDOWS,
+                      X0=[1.0, 0.0], pre_steps=UMB_PRE, step_size=UMB_DT,
+                      report_interval=PULL_REPORT, seed=7, verbose=False,
+                      device=dev)
+            kw.update(over)
+            return integrate_sde_steered(TripleWellCircle(), angle_cv,
+                                         UMB_RANGE[0], UMB_RANGE[1],
+                                         10 * kappa, **kw)
+
+        pulled, row = mesh_twins(
+            "c steered", pull, UMB_WINDOWS, MESH_UMB_STEPS,
+            (UMB_PRE + MESH_UMB_STEPS) // PULL_REPORT, mesh, card,
+            dict(n_steps=2 * UMB_REPORT, report_interval=UMB_REPORT,
+                 pre_steps=0, X0=np.tile([1.0, 0.0], (UMB_WINDOWS, 1))))
+        row["jarzynski_end"] = float(pulled.jarzynski()[-1])
+        if not np.isfinite(pulled.jarzynski()).all():
+            raise AssertionError("c: non-finite Jarzynski estimate")
+        out["c steered"] = row
+
+        # (d) replica exchange: phase 12 (e)'s ladder and exchanges
+        eeb = REMD_EXCHANGE // REMD_REPORT
+
+        def remd(**over):
+            kw = dict(n_steps=MESH_REMD_STEPS, X0=[-1.0, 0.0],
+                      step_size=REMD_DT, report_interval=REMD_REPORT,
+                      exchange_interval=REMD_EXCHANGE, seed=1, verbose=False,
+                      device=dev)
+            kw.update(over)
+            return integrate_sde_remd(DoubleWell2D(), list(REMD_BETAS), **kw)
+
+        rem, row = mesh_twins(
+            "d remd", remd, len(REMD_BETAS), MESH_REMD_STEPS,
+            MESH_REMD_STEPS // REMD_REPORT, mesh, card,
+            dict(n_steps=2 * MESH_REMD_EXCHANGES * REMD_REPORT,
+                 exchange_interval=2 * REMD_REPORT), tmp=tmp,
+            exchanges=MESH_REMD_EXCHANGES)
+        # the first blocks captured (the all-gather inside each exchange
+        # block's graph) against the same blocks run eagerly
+        m = 2 * eeb + 1
+        t0 = time.perf_counter()
+        twin = remd(mesh=mesh, _eager_blocks=m)
+        row["eager_twin_s"] = time.perf_counter() - t0
+        same = (np.array_equal(twin.frames[:, :m], rem.frames[:, :m])
+                and np.array_equal(twin.swap_history[:m],
+                                   rem.swap_history[:m]))
+        row.update(eager_twin_blocks=m, captured_vs_eager_bitwise=same,
+                   pair_acceptance=rem.pair_acceptance.tolist(),
+                   swaps=int(rem.swap_history.sum()))
+        log(f"  d: the meshed run's first {m} blocks ({m // eeb + 1} exchange "
+            f"blocks captured with their all-gather) bit for bit the eager "
+            f"twin's: {same}; pair acceptance "
+            f"{np.round(rem.pair_acceptance, 3).tolist()}, "
+            f"{row['swaps']} slot moves")
+        if not same:
+            raise AssertionError("d: the captured meshed exchange blocks "
+                                 "differ from their eager twin")
+        if not rem.swap_history.any():
+            raise AssertionError("d: no exchange was accepted")
+        out["d remd"] = row
+    finally:
+        dist.destroy_process_group()
+        if os.path.exists(init):
+            os.remove(init)
+        tmp_dir.cleanup()
+    out["launches"] = {"fused_align":
+                       out["a metadynamics"]["launches"]["fused_align"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"  phase 15 took {out['phase_s']:.1f} s")
+    return out
+
+
 # what each phase takes from an earlier one: phase 4's runs, phase 9's sweeps
 PHASE_NEEDS = {5: {4}, 8: {4}, 9: {4}, 10: {4}, 11: {4, 9}, 12: {4},
-               14: {4}}
-ALL_PHASES = tuple(range(1, 15))
+               14: {4}, 15: {4}}
+ALL_PHASES = tuple(range(1, 16))
 
 
 def parse_phases(spec):
@@ -3735,6 +4038,11 @@ def main():
         results["drivers"] = phase_drivers(card, ref, traj_np, w_np, cvf,
                                            runs)
         add_launches("drivers", results["drivers"]["launches"])
+    if 15 in phases:
+        log("phase 15: the enhanced samplers on a mesh of one NCCL rank")
+        results["mesh_samplers"] = phase_mesh_samplers(card, ref, traj_np,
+                                                       runs, cvf)
+        add_launches("meshed samplers", results["mesh_samplers"]["launches"])
     log("launches by phase: " + "; ".join(
         f"{label} {counts}" for label, counts in sources.items()))
     rows = []

@@ -32,6 +32,7 @@ from .core import (
     RegAutoEncoderTask,
     TrainingTask,
 )
+from .checkpoint import load_torch_state_dict, save_torch_state_dict
 from .deploy import load_numpy_cv, save_numpy_cv
 from .deploy_native import load_native_cv, native_available
 from .deploy_plumed import PlumedCV, write_plumed_cv, write_plumed_metad
@@ -52,7 +53,14 @@ from .ops import (
     FusedAlignmentLayer,
     PreprocessingANN,
 )
-from .utils import WeightedTrajectory, calc_weights
+from .utils import (
+    WeightedTrajectory,
+    calc_weights,
+    integrate_md_langevin,
+    integrate_sde_overdamped,
+)
+
+__version__ = "0.1.0"
 
 __all__ = [
     "AlignmentLayer",
@@ -77,11 +85,15 @@ __all__ = [
     "create_sequential_nn",
     "export_colvar",
     "export_torchscript_cv",
+    "integrate_md_langevin",
+    "integrate_sde_overdamped",
     "load_colvar",
     "load_native_cv",
     "load_numpy_cv",
+    "load_torch_state_dict",
     "native_available",
     "save_numpy_cv",
+    "save_torch_state_dict",
     "torchscript_from_numpy_cv",
     "write_plumed_cv",
     "write_plumed_metad",
@@ -95,4 +107,5 @@ __all__ = [
     "tune",
     "utils",
     "workflow",
+    "__version__",
 ]

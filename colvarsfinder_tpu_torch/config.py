@@ -169,8 +169,13 @@ def bf16_style() -> str:
 def numerics_key() -> tuple:
     """What the numerics of a captured epoch depend on: the float32 matmul
     precision, the default dtype, the activation dtype and the bfloat16
-    style (``colvarsfinder_tpu/config.py:201-205``)."""
-    return (matmul_precision(), _DTYPE, _COMPUTE_DTYPE, _BF16_STYLE)
+    style (``colvarsfinder_tpu/config.py:201-205``), and the QCP Newton
+    solve's differentiation mode, which a captured graph records
+    (:func:`..ops.alignment.newton_diff_mode`)."""
+    from .ops import alignment  # imported here: ops imports this module
+
+    return (matmul_precision(), _DTYPE, _COMPUTE_DTYPE, _BF16_STYLE,
+            alignment.DEFAULT_NEWTON_DIFF_STEPS)
 
 
 def resolve_device(device=None) -> torch.device:

@@ -65,6 +65,8 @@ class CommittorTask(TrainingTask):
         streaming: keep the trajectory on the host and stream the batches
             (True), keep it on the device (False), or stream above
             :attr:`STREAMING_AUTO_LIMIT_BYTES` (None).
+        unroll_batches: the JAX package's epoch-body layout, accepted
+            without effect (:meth:`.task.TrainingTask._check_layout`).
         (remaining arguments as in the other tasks)
 
     Attributes:
@@ -85,6 +87,8 @@ class CommittorTask(TrainingTask):
         beta: float = 1.0,
         diag_coeff=None,
         gram_pp: bool | None = None,
+        streaming: bool | None = None,
+        unroll_batches: bool | None = None,
         learning_rate: float = 0.01,
         load_model_filename=None,
         save_model_every_step: int = 10,
@@ -97,7 +101,6 @@ class CommittorTask(TrainingTask):
         plot_frequency: int = 0,
         verbose: bool = True,
         debug_mode: bool = True,
-        streaming: bool | None = None,
         **kwargs,
     ):
         super().__init__(

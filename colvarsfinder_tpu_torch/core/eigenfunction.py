@@ -138,7 +138,11 @@ class EigenFunctionTask(TrainingTask):
       features once for the whole trajectory;
     * ``streaming``: keep the trajectory on the host and stream the batches
       (True), keep it on the device (False), or stream when the device
-      copies would exceed :attr:`STREAMING_AUTO_LIMIT_BYTES` (None).
+      copies would exceed :attr:`STREAMING_AUTO_LIMIT_BYTES` (None);
+    * ``prebatch`` / ``unroll_batches``: the JAX package's batch layouts,
+      validated as there and otherwise without effect: the batches are
+      always gathered once into the captured epoch
+      (:meth:`.task.TrainingTask._check_layout`).
 
     Attributes:
         train_loss / test_loss: per-epoch mean metrics [epochs, 3 + k] with
@@ -172,10 +176,12 @@ class EigenFunctionTask(TrainingTask):
         verbose: bool = True,
         debug_mode: bool = True,
         precompute_features: bool = False,
+        prebatch: bool | None = None,
         fused_step: bool = False,
         gram_pp: bool | None = None,
         gram_dtype=None,
         streaming: bool | None = None,
+        unroll_batches: bool | None = None,
         **kwargs,
     ):
         if not isinstance(model, EigenFunctions):
@@ -252,6 +258,7 @@ class EigenFunctionTask(TrainingTask):
         raw = np.asanyarray(traj_obj.trajectory)
         self._streaming = self._resolve_streaming(
             streaming, (2 if lag_idx > 0 else 1) * raw.size * dt.itemsize)
+        self._check_layout(prebatch)
         self._traj = self._traj_np = None
         if self._streaming:
             self._traj_np = raw
@@ -311,6 +318,26 @@ class EigenFunctionTask(TrainingTask):
         return None
 
     # ------------------------------------------------------------------
+    def loss_func(self, X, weight, X_lagged=None, weight_lagged=None):
+        r"""The loss of one batch with the task's settings
+        (``colvarsfinder_tpu/core/eigenfunction.py:636-655``): the plain
+        :func:`.losses.eigen_loss`, never the fused K3/K4 step, as in the
+        JAX package; through ``FusedAlignmentLayer`` it launches K2. Arrays
+        or tensors; they go to the task's device in the default dtype.
+        Returns ``(loss, eig_vals, non_penalty_loss, penalty, cvec)``."""
+        def put(a):
+            return None if a is None else torch.as_tensor(
+                a, dtype=default_dtype(), device=self.device)
+
+        loss, aux = eigen_loss(
+            self.model, self._pp_for_loss, put(X), put(weight),
+            put(X_lagged), put(weight_lagged), k=self.k, alpha=self._alpha,
+            eig_w=self._eig_w_t, beta=self._beta,
+            diag_coeff=self._diag_coeff, lag_idx=self.lag_idx,
+            traj_dt=self.traj_dt, sort_eigvals=self._sort_eigvals_in_training,
+        )
+        return loss, aux.eig_vals, aux.non_penalty_loss, aux.penalty, aux.cvec
+
     def _prepare_data(self):
         """``(train, test, train_b, test_b, rows)``: per batch
         ``(X, X_l, w, w_l)`` (transfer operator), ``(X, w)`` (generator) or

@@ -257,6 +257,7 @@ def eigen_loss(
     lag_idx: int,
     traj_dt: float,
     sort_eigvals: bool,
+    fuse_lagged: bool = False,
     pp_gram: torch.Tensor | None = None,
     jac: Callable = _input_jacobian,
     gather: Callable = no_gather,
@@ -273,7 +274,10 @@ def eigen_loss(
     is the precomputed feature batch, ``pp_layer`` and ``diag_coeff`` are
     not used, and the integrand is the quadratic form in the model-only
     Jacobian. Transfer operator (``lag_idx > 0``): lagged
-    square-difference quotients. ``jac`` takes the per-sample input
+    square-difference quotients; ``fuse_lagged`` runs ``X`` and
+    ``X_lagged`` through one forward of their concatenation instead of
+    two, row for row the same math (ignored with ``pp_gram``, as in the JAX
+    package). ``jac`` takes the per-sample input
     gradients (:func:`input_jacobian` inside a replica map); ``gather``
     the whole batch's head outputs, integrands and weights.
     """
@@ -285,6 +289,9 @@ def eigen_loss(
     elif lag_idx == 0:
         y, J = jac(lambda Xb: model(pp_layer(Xb)), X, k)
         grad_sq = _grad_sq(J, diag_coeff)
+    elif fuse_lagged and X_lagged is not None:
+        both = model(pp_layer(torch.cat([X, X_lagged])))
+        y, y_lagged = both[:X.shape[0]], both[X.shape[0]:]
     else:
         y = model(pp_layer(X))  # [B, k]
         y_lagged = model(pp_layer(X_lagged))

@@ -42,9 +42,9 @@ On a mesh every term gathers its per-sample values (reconstruction errors,
 encoder outputs and gradients, head outputs and integrands) where it
 reduces them over the batch (:meth:`.task.TrainingTask._gather`), and a
 frozen encoder's gradients are zeroed after their sum over the ranks. The
-JAX package's ``prebatch`` layout is not ported (ROADMAP.md queue 1, item
-18); ``shard_trajectory`` is the meshed layout itself
-(:mod:`.task`).
+JAX package's ``prebatch`` layout is accepted and changes nothing
+(:meth:`.task.TrainingTask._check_layout`); ``shard_trajectory`` is the
+meshed layout itself (:mod:`.task`).
 """
 
 from __future__ import annotations
@@ -95,7 +95,9 @@ class RegAutoEncoderTask(TrainingTask):
       (True), keep it on the device (False), or stream when its device
       copies, one per active lag, would exceed
       :attr:`STREAMING_AUTO_LIMIT_BYTES` (None; JAX
-      ``regautoencoder.py:451-460``).
+      ``regautoencoder.py:451-460``);
+    * ``prebatch``: the JAX package's batch layout, validated as there and
+      otherwise without effect (:meth:`.task.TrainingTask._check_layout`).
 
     Attributes:
         train_loss / test_loss: per-epoch mean metrics [epochs, 7 + K] with
@@ -138,6 +140,7 @@ class RegAutoEncoderTask(TrainingTask):
         verbose: bool = True,
         debug_mode: bool = True,
         precompute_features: bool = False,
+        prebatch: bool | None = None,
         gram_pp: bool | None = None,
         streaming: bool | None = None,
         **kwargs,
@@ -197,6 +200,7 @@ class RegAutoEncoderTask(TrainingTask):
                     + (sum(gamma) > _EPS and self.lag_idx > 0))
         self._streaming = self._resolve_streaming(
             streaming, n_copies * raw.size * dt.itemsize)
+        self._check_layout(prebatch)
         self._traj = self._traj_np = None
         if self._streaming:
             self._traj_np = raw

@@ -46,8 +46,10 @@ scalars, plots and progress. ``shard_trajectory`` is accepted as in the
 JAX package; the port gathers the batches once, so each rank's prepared
 slices already hold 1/W of them, and the two layouts coincide.
 
-Not ported: the ``unroll``/``prebatch`` switches (ROADMAP.md queue 1,
-item 18).
+The JAX package's batch layouts, ``prebatch=`` and ``unroll_batches=``,
+are accepted and validated as there (:meth:`TrainingTask._check_layout`)
+and change nothing: the batches are always gathered once into the captured
+epoch.
 """
 
 from __future__ import annotations
@@ -72,7 +74,12 @@ from ..logging_utils import MetricsWriter, profile_trace
 from ..ops import _cuda
 from ..ops.features import Identity
 from ..parallel.collectives import all_reduce_grads, gather_rows
-from ..parallel.mesh import mesh_coords, replicate, shard_batches
+from ..parallel.mesh import (
+    mesh_coords,
+    replicate,
+    shard_batches,
+    shared_seed,
+)
 from .streaming import GatherPool, StreamIO
 
 __all__ = ["TrainingTask", "capture_epoch", "train_test_split"]
@@ -284,13 +291,6 @@ class TrainingTask(ABC):
                     f"task trains on '{self.device.type}'")
             self._rank, self._ranks, group = mesh_coords(mesh)
             self._mesh_key = (self._ranks, dist.get_backend(group))
-            if seed is None:
-                # one split on every rank: rank 0's draw
-                drawn = [int(np.random.randint(0, 2**31 - 1))]
-                dist.broadcast_object_list(
-                    drawn, src=dist.get_global_rank(group, 0), group=group,
-                    device=self.device)
-                seed = drawn[0]
             verbose = verbose and self._rank == 0
             tensorboard = tensorboard and self._rank == 0
         self.traj_obj = traj_obj
@@ -311,9 +311,8 @@ class TrainingTask(ABC):
         self.plot_frequency = plot_frequency
         self.verbose = verbose
         self.debug_mode = debug_mode
-        if seed is None:
-            seed = int(np.random.randint(0, 2**31 - 1))
-        self.seed = seed
+        # a drawn seed: on a mesh rank 0's, so every rank takes one split
+        self.seed = shared_seed(seed, mesh, self.device)
         self.split_indices = split_indices
         self.export_cv = export_cv
         # the traced CV programs, kept across saves (export_colvar)
@@ -749,6 +748,25 @@ class TrainingTask(ABC):
                 "combine with shard_trajectory (device-resident frame "
                 "sharding)")
         return streaming
+
+    def _check_layout(self, prebatch) -> None:
+        """Validate the JAX package's batch-layout switch ``prebatch=`` as
+        it does (``colvarsfinder_tpu/core/eigenfunction.py:484-506``):
+        ``prebatch=False`` (per-step gathers on the device) cannot stream,
+        and ``prebatch=True`` cannot take a frame-sharded trajectory. The
+        port always gathers the batches once into the captured epoch (or
+        streams them), so ``prebatch=`` and ``unroll_batches=`` (the JAX
+        epoch body's layouts, whose loss trajectories are the same,
+        ``colvarsfinder_tpu/core/task.py:488-497``) change no result."""
+        if self._streaming and prebatch is False:
+            raise ValueError(
+                "streaming=True gathers batches on the host (the prebatch "
+                "tuple format); prebatch=False selects the on-device gather "
+                "layout, which requires device-resident data")
+        if prebatch and not self._streaming and self.shard_trajectory:
+            raise ValueError(
+                "prebatch=True is incompatible with shard_trajectory: the "
+                "frame-sharded layout requires per-step gathers")
 
     @staticmethod
     def _chunked_apply(fn, arr, chunk: int = 65536, device=None) -> np.ndarray:

@@ -16,8 +16,10 @@ same ``plumed.dat`` text for one saved CV.
   ``plumed.dat``.
 
 The readers of PLUMED's HILLS and COLVAR files that close the adaptive loop
-(``colvarsfinder_tpu/utils/enhanced.py``) are not ported yet (ROADMAP.md
-queue 1, item 14).
+are :func:`.utils.enhanced.read_plumed_hills` and
+:func:`.utils.enhanced.read_plumed_colvar`, and
+:func:`.utils.enhanced.metad_frame_weights` turns them into training
+weights.
 
 Two emission modes, chosen automatically from the artifact's graph:
 
@@ -433,10 +435,10 @@ def write_plumed_metad(
     """Write a complete ``plumed.dat`` running well-tempered metadynamics
     along the saved CV.
 
-    The resulting HILLS / COLVAR files are those that the JAX package's
-    ``read_plumed_hills`` / ``read_plumed_colvar`` and
-    ``metad_frame_weights`` read back for retraining
-    (``colvarsfinder_tpu/utils/enhanced.py``, not ported yet).
+    The resulting HILLS / COLVAR files are those that
+    :func:`.utils.enhanced.read_plumed_hills` /
+    :func:`.utils.enhanced.read_plumed_colvar` and
+    :func:`.utils.enhanced.metad_frame_weights` read back for retraining.
 
     Args:
         artifact_dir, **cv_kwargs: forwarded to :func:`write_plumed_cv`.

@@ -18,6 +18,7 @@ The row-vector convention ``y = x @ R`` is used throughout.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from typing import Optional, Sequence
 
 import numpy as np
@@ -31,6 +32,7 @@ __all__ = [
     "align_frames",
     "kabsch_rotations_quat",
     "kabsch_rotations_svd",
+    "newton_diff_mode",
     "quaternion_from_covariance",
     "quaternion_to_rotation_entries",
 ]
@@ -109,16 +111,47 @@ def _det3(a, b, c, d, e, f, g, h, i):
     return a * (e * i - f * h) - b * (d * i - f * g) + c * (d * h - e * g)
 
 
+#: default differentiation mode of the QCP Newton solve
+#: (``colvarsfinder_tpu/ops/alignment.py:72-82``): 0 differentiates every
+#: Newton step; n > 0 runs the convergence on detached coefficients and
+#: appends n differentiable steps (implicit differentiation, exact first
+#: and, with two steps, second derivatives at the root)
+DEFAULT_NEWTON_DIFF_STEPS: int = 0
+
+
+@contextmanager
+def newton_diff_mode(diff_steps: int):
+    """Override of :data:`DEFAULT_NEWTON_DIFF_STEPS` inside the block, the
+    previous mode restored on the way out, an exception included
+    (``colvarsfinder_tpu/ops/alignment.py:85-99``).
+
+    The JAX package reads the mode when it traces a program. Eager PyTorch
+    has no trace: the mode is read each time :func:`quaternion_from_covariance`
+    runs, so it holds for every alignment (and every K2 backward, which is
+    the plain alignment's) computed inside the block. A CUDA graph keeps
+    the mode it was captured under; the graph keys of captured epochs and
+    sweeps hold the mode (:func:`..config.numerics_key`), so a change of
+    mode captures anew instead of replaying a stale graph."""
+    global DEFAULT_NEWTON_DIFF_STEPS
+    prev = DEFAULT_NEWTON_DIFF_STEPS
+    DEFAULT_NEWTON_DIFF_STEPS = diff_steps
+    try:
+        yield
+    finally:
+        DEFAULT_NEWTON_DIFF_STEPS = prev
+
+
 def quaternion_from_covariance(c9, newton_iters: int = 16,
-                               diff_steps: int = 0):
+                               diff_steps: int | None = None):
     """Optimal-rotation quaternion from the 9 entries of a covariance
     pre-normalized by its Frobenius norm
     (``colvarsfinder_tpu/ops/alignment.py:102-238``).
 
-    ``diff_steps == 0``: the Newton loop is differentiated step by step.
-    ``diff_steps > 0``: convergence runs on detached coefficients and this
-    many differentiable steps follow (implicit differentiation; the forward
-    value is unchanged).
+    ``diff_steps`` is None: :data:`DEFAULT_NEWTON_DIFF_STEPS` as it stands
+    at the call (:func:`newton_diff_mode`). ``0``: the Newton loop is
+    differentiated step by step. ``> 0``: convergence runs on detached
+    coefficients and this many differentiable steps follow (implicit
+    differentiation; the forward value is unchanged).
 
     Returns the unit quaternion ``(w, x, y, z)`` (sign arbitrary).
     """
@@ -155,6 +188,8 @@ def quaternion_from_covariance(c9, newton_iters: int = 16,
         return lam - p / torch.where(dp.abs() > 1e-12, dp,
                                      torch.full_like(dp, 1e-12))
 
+    if diff_steps is None:
+        diff_steps = DEFAULT_NEWTON_DIFF_STEPS
     if diff_steps <= 0:
         lam = 2.0 * torch.sqrt(fro2)
         for _ in range(newton_iters):
@@ -363,3 +398,14 @@ class AlignmentLayer(nn.Module):
             align_weights=self.align_weights, method=self.method,
         )
         return out[0] if squeeze else out
+
+    def show_info(self):
+        """Print the align atoms, the method and the centred reference, in
+        the JAX package's words (``colvarsfinder_tpu/ops/alignment.py:
+        409-415``)."""
+        weighted = "" if self.align_weights is None else ", weighted"
+        print(
+            f"AlignmentLayer: {self.ref_centered.shape[0]} align atoms, "
+            f"method={self.method}{weighted}\nreference (centered):\n"
+            f"{self.ref_centered.detach().cpu().numpy()}"
+        )

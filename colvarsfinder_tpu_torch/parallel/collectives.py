@@ -1,4 +1,5 @@
-r"""The two collectives a meshed train step makes (:mod:`.mesh`).
+r"""The two collectives a meshed train step makes (:mod:`.mesh`), and the
+plain all-gather of the meshed samplers.
 
 Every loss of the port is a nonlinear function of batch statistics
 (weighted means, centred moments, quotients of them), so per-rank losses
@@ -23,6 +24,11 @@ reduce with a pre-multiplied sum by 1.0, which is the sum, exactly: NCCL
 skips an in-place sum of one rank without launching anything, and the
 pre-multiplied sum runs its reduce kernel at every world size, so a graph
 captured at W = 1 holds the collectives it holds at W > 1.
+
+:func:`all_gather_rows` is one all-gather with no autograd, for the
+samplers (:mod:`..utils.enhanced`), whose chains are independent: it
+gathers the slots of a replica exchange inside its captured block, and a
+call's recorded arrays at its end.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import torch.distributed as dist
 
 from .mesh import mesh_coords
 
-__all__ = ["all_reduce_grads", "gather_rows"]
+__all__ = ["all_gather_rows", "all_reduce_grads", "gather_rows"]
 
 
 def _sum(tensor: torch.Tensor, group) -> None:
@@ -103,3 +109,16 @@ def all_reduce_grads(params, mesh) -> None:
     _sum(flat, group)
     torch._foreach_copy_(grads, [part.view_as(g) for part, g in zip(
         flat.split([g.numel() for g in grads]), grads)])
+
+
+def all_gather_rows(mesh, tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor`` [b, ...] (the same shape on every rank) of every rank of
+    ``mesh``, concatenated along axis 0 in rank order: [W·b, ...], through
+    one all-gather into a new tensor. No autograd."""
+    _, size, group = mesh_coords(mesh)
+    # all_gather_into_tensor under its newer name where torch has it
+    gather = getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+    out = tensor.new_empty((size * tensor.shape[0],) + tuple(tensor.shape[1:]))
+    gather(out, tensor.contiguous(), group=group)
+    return out

@@ -60,6 +60,19 @@ def mesh_coords(mesh) -> tuple:
     return mesh.get_local_rank(), mesh.size(), mesh.get_group()
 
 
+def shared_seed(seed: Optional[int], mesh, device) -> int:
+    """``seed``, or where it is None one drawn with numpy: on a mesh, rank
+    0's draw, broadcast, so that every rank takes the same."""
+    if seed is not None:
+        return seed
+    drawn = [int(np.random.randint(0, 2**31 - 1))]
+    if mesh is not None:
+        _, _, group = mesh_coords(mesh)
+        dist.broadcast_object_list(drawn, src=dist.get_global_rank(group, 0),
+                                   group=group, device=device)
+    return drawn[0]
+
+
 def replicate(module_or_tensors: Any, mesh) -> Any:
     """Broadcast every parameter and buffer of a module (or every tensor
     of a sequence) from the mesh's rank 0, in place, so that every rank

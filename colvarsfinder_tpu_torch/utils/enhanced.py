@@ -33,8 +33,22 @@ The result dataclasses, :func:`mbar_weights` (but for the evaluation of
 :func:`read_plumed_hills`, :func:`metad_frame_weights`,
 :func:`read_plumed_colvar`) are numpy, copied from the JAX module
 (``enhanced.py:97-228, 472-649, 657-742, 925-1016, 1272-1407,
-1665-2001``). ``mesh=`` is ROADMAP item 14b and raises
-``NotImplementedError``.
+1665-2001``).
+
+``mesh=`` (:func:`..parallel.make_data_mesh`, one process per card over
+``torch.distributed``) shards the walkers, windows, pulls or replica slots
+of a call over the ranks, as the JAX package shards them over its mesh's
+first axis (``enhanced.py:386-398, 852-865, 1222-1235, 1598-1610``); a
+count that does not divide raises ``ValueError`` before any work. A meshed
+call gives the unmeshed call's numbers: every rank draws the whole call's
+increments from the same seeded draws and keeps its own rows
+(:class:`_RankNoise`), integrates its chains in the same captured blocks,
+and at the end one all-gather of the recorded arrays gives every rank the
+whole result (:func:`_gather_chains`). Metadynamics walkers, umbrella
+windows and steered pulls are independent, so nothing else crosses the
+ranks; a replica exchange gathers the slots' states inside its captured
+block, decides on the whole batch with the same uniforms on every rank, and
+keeps its own rows. Only rank 0 writes files and prints.
 """
 
 from __future__ import annotations
@@ -49,6 +63,8 @@ import numpy as np
 import torch
 
 from ..config import default_dtype, resolve_device
+from ..parallel.collectives import all_gather_rows
+from ..parallel.mesh import mesh_coords, shared_seed
 from . import sampling as _sampling
 from .sampling import _Blocks, _Recorder, _batch_grad, _chains, _f32
 
@@ -72,13 +88,79 @@ __all__ = [
 ]
 
 
-def _no_mesh(mesh, who: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{who}: mesh= is not ported yet (ROADMAP item 14b: the walkers "
-            "sharded over torch.distributed ranks, replica exchange across "
-            "ranks)"
+def _mesh_rows(mesh, n: int, what: str, unit: str, device) -> tuple:
+    """``(rows, rank)``: this rank's contiguous share of the ``n`` chains
+    of a meshed call and its rank; every chain and rank 0 without a mesh.
+    Raises ``ValueError`` in the JAX package's words when ``n`` does not
+    divide over the mesh (``enhanced.py:391-395``), and when the mesh is
+    over other devices than the call's."""
+    if mesh is None:
+        return slice(0, n), 0
+    rank, size, _ = mesh_coords(mesh)
+    if n % size:
+        raise ValueError(
+            f"{what} {n} must be divisible by the size of mesh axis "
+            f"'{mesh.mesh_dim_names[0]}' ({size}), which the {unit} shard "
+            "over"
         )
+    if mesh.device_type != device.type:
+        raise ValueError(
+            f"the mesh is over '{mesh.device_type}' devices and the call "
+            f"runs on '{device.type}'")
+    share = n // size
+    return slice(rank * share, (rank + 1) * share), rank
+
+
+class _RankNoise:
+    """The draws of one rank of a meshed call. Each normal draw of the
+    call (a block's increments ``[n, C, d]``, the chains on axis 1) is
+    drawn whole from the call's draws (:func:`.sampling._make_noise`), in
+    the order the unmeshed call draws, and this rank keeps its ``rows``;
+    the exchange uniforms, which every rank needs whole, pass through. So
+    every chain is integrated with the unmeshed call's numbers."""
+
+    def __init__(self, noise, rows: slice, n_chains: int):
+        self.noise, self.rows, self.n_chains = noise, rows, n_chains
+        self.whole: dict = {}
+
+    def normal(self, out: torch.Tensor, stream: str, i: int) -> None:
+        shape = (out.shape[0], self.n_chains) + tuple(out.shape[2:])
+        whole = self.whole.get(shape)
+        if whole is None:
+            whole = self.whole[shape] = out.new_empty(shape)
+        self.noise.normal(whole, stream, i)
+        out.copy_(whole[:, self.rows])
+
+    def uniform(self, out: torch.Tensor, stream: str, i: int) -> None:
+        self.noise.uniform(out, stream, i)
+
+
+def _rank_noise(noise, mesh, rows: slice, n_chains: int):
+    """The draws this rank integrates with: ``noise`` itself without a
+    mesh."""
+    return noise if mesh is None else _RankNoise(noise, rows, n_chains)
+
+
+def _gather_chains(mesh, device, arrays) -> list:
+    """The whole call's arrays on every rank. Each ``(array, axis)`` holds
+    this rank's chains along ``axis`` (float32 or bool); the ranks' shares
+    are concatenated in rank order along it, through one all-gather of one
+    flat float32 buffer. Without a mesh the arrays themselves."""
+    if mesh is None:
+        return [a for a, _ in arrays]
+    _, size, _ = mesh_coords(mesh)
+    moved = [np.moveaxis(a, axis, 0) for a, axis in arrays]
+    flat = np.concatenate([m.astype(np.float32).ravel() for m in moved])
+    whole = all_gather_rows(mesh, torch.from_numpy(flat).to(device))
+    whole = whole.cpu().numpy().reshape(size, -1)
+    out, lo = [], 0
+    for (a, axis), m in zip(arrays, moved):
+        part = whole[:, lo:lo + m.size].reshape(
+            (size * m.shape[0],) + m.shape[1:])
+        lo += m.size
+        out.append(np.ascontiguousarray(np.moveaxis(part, 0, axis))
+                   .astype(a.dtype))
+    return out
 
 
 def harmonic_restraint(center, kappa: float) -> Callable:
@@ -419,7 +501,9 @@ def integrate_sde_metadynamics(
             (time, center..., sigma..., height, biasf).
         n_chains: independent walkers, one chain batch (each with its own
             hill pool).
-        mesh: not ported (ROADMAP item 14b); anything but None raises.
+        mesh: a 1-axis mesh (:func:`..parallel.make_data_mesh`) over which
+            the walkers shard, ``n_chains / W`` on each rank; every rank
+            returns the whole result, and only rank 0 writes files.
         device: the card unless ``'cpu'`` is asked for; each deposition
             block is one captured CUDA graph there.
 
@@ -432,30 +516,32 @@ def integrate_sde_metadynamics(
     n_hills = n_steps // deposit_interval
     if n_hills < 1:
         raise ValueError("n_steps must be at least deposit_interval")
-    _no_mesh(mesh, "integrate_sde_metadynamics")
     dim = pot_obj.dim
     beta = float(pot_obj.beta)
     dev = resolve_device(device)
+    rows, rank = _mesh_rows(mesh, n_chains, "n_chains", "walkers", dev)
 
-    if seed is None:
-        seed = np.random.randint(0, 2**31 - 1)
-    noise = _sampling._make_noise(seed, dev)
+    # on a mesh with seed=None, rank 0's draw
+    noise = _sampling._make_noise(shared_seed(seed, mesh, dev), dev)
     X0 = _sampling._starts(X0, noise, "x0", (n_chains, dim), dev)
     _sampling._require_torch(pot_obj, X0[0], "integrate_sde_metadynamics")
 
     wt_denom = _f32(
         (bias_factor - 1.0) / beta if bias_factor is not None else 1.0)
     rec, centers, heights = _metad_scan(
-        _sampling._energy_fn(pot_obj), _cv_fn(cv_model), _chains(X0, dev),
-        noise, _Blocks(dev, _eager_blocks), step_size, beta,
+        _sampling._energy_fn(pot_obj), _cv_fn(cv_model),
+        _chains(X0[rows], dev), _rank_noise(noise, mesh, rows, n_chains),
+        _Blocks(dev, _eager_blocks), step_size, beta,
         _f32(hill_height), wt_denom, _f32(1.0 / (2.0 * hill_width**2)),
         int(n_hills), int(deposit_interval), int(pre_steps),
         bias_factor is not None,
     )
-    frames = np.swapaxes(rec["x"], 0, 1)
-    cvs = np.swapaxes(rec["s"], 0, 1)
+    frames, cvs, centers, heights = _gather_chains(mesh, dev, [
+        (rec["x"], 1), (rec["s"], 1), (centers, 0), (heights, 0)])
+    frames = np.swapaxes(frames, 0, 1)
+    cvs = np.swapaxes(cvs, 0, 1)
 
-    if sampling_output_path is not None:
+    if sampling_output_path is not None and rank == 0:
         os.makedirs(sampling_output_path, exist_ok=True)
         times = (np.arange(n_hills) + 1) * deposit_interval * step_size
         for c in range(n_chains):
@@ -498,7 +584,7 @@ def integrate_sde_metadynamics(
                     )
                     f.write(" ".join(f"{v:.6f}" for v in row) + "\n")
 
-    if verbose:
+    if verbose and rank == 0:
         print(
             f"metadynamics: {n_hills} hills deposited per walker "
             f"({n_chains} walkers, gamma="
@@ -823,7 +909,9 @@ def integrate_sde_umbrella(
         X0: initial state [dim] shared by all windows, or per-window
             [K, dim] starts; default a standard-normal draw shared by all.
         pre_steps: per-window burn-in steps (discarded).
-        mesh: not ported (ROADMAP item 14b); anything but None raises.
+        mesh: a 1-axis mesh (:func:`..parallel.make_data_mesh`) over which
+            the windows shard, ``K / W`` on each rank; every rank returns
+            the whole result, and only rank 0 writes files.
         step_size / report_interval / seed / verbose / device: as in
             :func:`~.sampling.integrate_sde_overdamped`.
 
@@ -839,14 +927,13 @@ def integrate_sde_umbrella(
     ).astype(np.float64)
     if n_steps < 1:
         raise ValueError("n_steps must be >= 1")
-    _no_mesh(mesh, "integrate_sde_umbrella")
     dim = pot_obj.dim
     beta = float(pot_obj.beta)
     dev = resolve_device(device)
+    rows, rank = _mesh_rows(mesh, K, "window count", "windows", dev)
 
-    if seed is None:
-        seed = np.random.randint(0, 2**31 - 1)
-    noise = _sampling._make_noise(seed, dev)
+    # on a mesh with seed=None, rank 0's draw
+    noise = _sampling._make_noise(shared_seed(seed, mesh, dev), dev)
     if X0 is None:
         X0 = _sampling._starts(None, noise, "x0", (dim,), dev)
     X0 = np.asarray(X0, dtype=np.float64)
@@ -856,9 +943,9 @@ def integrate_sde_umbrella(
         raise ValueError(f"X0 must be [dim] or [K, dim]; got {X0.shape}")
     _sampling._require_torch(pot_obj, X0[0], "integrate_sde_umbrella")
 
-    x = _chains(X0, dev)
-    c_arr = torch.as_tensor(centers.astype(np.float32), device=dev)
-    k_arr = torch.as_tensor(kappas.astype(np.float32), device=dev)
+    x = _chains(X0[rows], dev)
+    c_arr = torch.as_tensor(centers[rows].astype(np.float32), device=dev)
+    k_arr = torch.as_tensor(kappas[rows].astype(np.float32), device=dev)
     energy = _sampling._energy_fn(pot_obj)
     cv_fn = _cv_fn(cv_model)
 
@@ -876,17 +963,18 @@ def integrate_sde_umbrella(
 
     n_reports = (n_steps - 1) // report_interval + 1
     rec = _sampling._em_scan(
-        lambda xx: _batch_grad(biased_v, xx), x, noise,
-        _Blocks(dev, _eager_blocks), step_size,
-        float(_sampling._noise_scale(step_size, beta)),
+        lambda xx: _batch_grad(biased_v, xx), x,
+        _rank_noise(noise, mesh, rows, K), _Blocks(dev, _eager_blocks),
+        step_size, float(_sampling._noise_scale(step_size, beta)),
         int(report_interval), int(n_reports), int(pre_steps),
     )
-    frames = rec["x"].transpose(1, 0, 2)  # [K, n_reports, dim]
+    (frames,) = _gather_chains(mesh, dev, [(rec["x"], 1)])
+    frames = frames.transpose(1, 0, 2)  # [K, n_reports, dim]
     cv_values = _eval_cv(cv_fn, frames.reshape(-1, dim), dev).reshape(
         K, n_reports, cv_dim
     )
 
-    if sampling_output_path is not None:
+    if sampling_output_path is not None and rank == 0:
         os.makedirs(sampling_output_path, exist_ok=True)
         times = np.arange(n_reports) * step_size * report_interval
         for k in range(K):
@@ -907,7 +995,7 @@ def integrate_sde_umbrella(
             comments="",
         )
 
-    if verbose:
+    if verbose and rank == 0:
         means = cv_values.mean(axis=1)
         print(
             f"umbrella sampling: {K} windows x {n_reports} frames; "
@@ -1127,7 +1215,9 @@ def integrate_sde_steered(
         pre_steps: equilibration steps under the restraint FIXED at
             ``cv_start`` (discarded); with ``pre_steps=0`` a warning is
             emitted unless ``X0`` gives per-realization starts.
-        mesh: not ported (ROADMAP item 14b); anything but None raises.
+        mesh: a 1-axis mesh (:func:`..parallel.make_data_mesh`) over which
+            the pulls shard, ``M / W`` on each rank; every rank returns the
+            whole result.
         step_size / report_interval / seed / verbose / device: as in
             :func:`~.sampling.integrate_sde_overdamped`.
 
@@ -1162,12 +1252,11 @@ def integrate_sde_steered(
             "per-realization equilibrium X0 [M, dim].",
             stacklevel=2,
         )
-    _no_mesh(mesh, "integrate_sde_steered")
     dev = resolve_device(device)
+    rows, rank = _mesh_rows(mesh, M, "n_realizations", "pulls", dev)
 
-    if seed is None:
-        seed = np.random.randint(0, 2**31 - 1)
-    noise = _sampling._make_noise(seed, dev)
+    # on a mesh with seed=None, rank 0's draw
+    noise = _sampling._make_noise(shared_seed(seed, mesh, dev), dev)
     if X0 is None:
         X0 = _sampling._starts(None, noise, "x0", (dim,), dev)
     X0 = np.asarray(X0, dtype=np.float64)
@@ -1177,7 +1266,7 @@ def integrate_sde_steered(
         raise ValueError(f"X0 must be [dim] or [M, dim]; got {X0.shape}")
     _sampling._require_torch(pot_obj, X0[0], "integrate_sde_steered")
 
-    x = _chains(X0, dev)
+    x = _chains(X0[rows], dev)
     cv_fn = _cv_fn(cv_model)
     cv_out = _cv_width(cv_fn, x)
     if cv_out != cv_dim:
@@ -1191,21 +1280,24 @@ def integrate_sde_steered(
 
     n_reports = n_steps // report_interval
     rec = _steered_scan(
-        _sampling._energy_fn(pot_obj), cv_fn, x, noise,
-        _Blocks(dev, _eager_blocks), step_size, beta, f32(c0), f32(c1),
-        _f32(kappa), int(report_interval), int(n_reports), int(pre_steps),
+        _sampling._energy_fn(pot_obj), cv_fn, x,
+        _rank_noise(noise, mesh, rows, M), _Blocks(dev, _eager_blocks),
+        step_size, beta, f32(c0), f32(c1), _f32(kappa),
+        int(report_interval), int(n_reports), int(pre_steps),
     )
+    frames, cvs, works = _gather_chains(mesh, dev, [
+        (rec["x"], 1), (rec["s"], 1), (rec["w"], 1)])
     res = SteeredResult(
-        frames=rec["x"].transpose(1, 0, 2),
-        cv_values=rec["s"].transpose(1, 0, 2),
-        works=np.asarray(rec["w"], dtype=np.float64).T,
+        frames=frames.transpose(1, 0, 2),
+        cv_values=cvs.transpose(1, 0, 2),
+        works=np.asarray(works, dtype=np.float64).T,
         schedule=np.asarray(rec["c"], dtype=np.float64),
         kappa=float(kappa),
         beta=beta,
         dt=step_size * report_interval,
     )
 
-    if verbose:
+    if verbose and rank == 0:
         print(
             f"steered pulling: {M} realizations x {n_reports} reports; "
             f"<W> {res.works[:, -1].mean():.4g}, "
@@ -1391,7 +1483,11 @@ def integrate_sde_remd(
             ``traj_replica{k}.txt`` (t, x...) and ``replicas.csv``
             (beta, pair acceptance).
         X0: initial state [dim] shared by all slots, or per-slot [K, dim].
-        mesh: not ported (ROADMAP item 14b); anything but None raises.
+        mesh: a 1-axis mesh (:func:`..parallel.make_data_mesh`) over which
+            the slots shard, ``K / W`` on each rank; each exchange gathers
+            the slots' states and decides on the whole ladder on every
+            rank, every rank returns the whole result, and only rank 0
+            writes files.
         pre_steps / step_size / report_interval / seed / verbose / device:
             as in :func:`~.sampling.integrate_sde_overdamped`.
 
@@ -1413,14 +1509,13 @@ def integrate_sde_remd(
             f"exchange_interval ({exchange_interval}) must be a multiple "
             f"of report_interval ({report_interval})"
         )
-    _no_mesh(mesh, "integrate_sde_remd")
     eeb = exchange_interval // report_interval
     dim = pot_obj.dim
     dev = resolve_device(device)
+    rows, rank = _mesh_rows(mesh, K, "replica count", "slots", dev)
 
-    if seed is None:
-        seed = np.random.randint(0, 2**31 - 1)
-    noise = _sampling._make_noise(seed, dev)
+    # on a mesh with seed=None, rank 0's draw
+    noise = _sampling._make_noise(shared_seed(seed, mesh, dev), dev)
     if X0 is None:
         X0 = _sampling._starts(None, noise, "x0", (dim,), dev)
     X0 = np.asarray(X0, dtype=np.float64)
@@ -1430,21 +1525,25 @@ def integrate_sde_remd(
         raise ValueError(f"X0 must be [dim] or [K, dim]; got {X0.shape}")
     _sampling._require_torch(pot_obj, X0[0], "integrate_sde_remd")
 
-    x = _chains(X0, dev)
+    x = _chains(X0[rows], dev)
     b32 = betas.astype(np.float32)
+    noise = _rank_noise(noise, mesh, rows, K)
     exchange, counts = _exchange(_sampling._energy_fn(pot_obj), x,
-                                 torch.as_tensor(b32, device=dev), noise)
+                                 torch.as_tensor(b32, device=dev), noise,
+                                 mesh, rows)
     n_reports = (n_steps - 1) // report_interval + 1
     rec = _sampling._em_scan(
         _sampling._grad_fn(pot_obj), x, noise, _Blocks(dev, _eager_blocks),
         step_size,
-        torch.as_tensor(_sampling._noise_scale(step_size, b32)[:, None],
+        torch.as_tensor(_sampling._noise_scale(step_size, b32[rows])[:, None],
                         device=dev),
         int(report_interval), int(n_reports), int(pre_steps),
         exchange=exchange, every=int(eeb),
     )
-    frames = rec["x"].transpose(1, 0, 2)  # [K, n_reports, dim]
-    swap_history = rec["moved"]  # [n_reports, K]
+    frames, swap_history = _gather_chains(mesh, dev, [
+        (rec["x"], 1), (rec["moved"], 1)])
+    frames = frames.transpose(1, 0, 2)  # [K, n_reports, dim]
+    # swap_history: [n_reports, K]
     att, accs = (t.cpu().numpy()[: K - 1] for t in counts)
 
     energies = _sampling._batched_energy(pot_obj, frames, dev, True)
@@ -1459,7 +1558,7 @@ def integrate_sde_remd(
         swap_history=swap_history,
     )
 
-    if sampling_output_path is not None:
+    if sampling_output_path is not None and rank == 0:
         os.makedirs(sampling_output_path, exist_ok=True)
         times = np.arange(n_reports) * step_size * report_interval
         for k in range(K):
@@ -1478,7 +1577,7 @@ def integrate_sde_remd(
             comments="",
         )
 
-    if verbose:
+    if verbose and rank == 0:
         print(
             f"replica exchange: {K} slots x {n_reports} frames; "
             f"pair acceptance {np.round(result.pair_acceptance, 3)}"
@@ -1486,15 +1585,22 @@ def integrate_sde_remd(
     return result
 
 
-def _exchange(energy, x, betas, noise):
+def _exchange(energy, x, betas, noise, mesh=None, rows=slice(None)):
     """Replica exchange on the chain batch ``x`` [K, d], on the device
     (``attempt_exchange``, ``enhanced.py:1453-1471``): ``draw(attempt)``
     fills the attempt's uniforms; ``apply()`` tests the even or odd
     neighbour pairs (by an attempt counter on the device) in log space,
     permutes ``x`` in place, counts attempts and acceptances per pair, and
     returns which slots moved. Returns ``((draw, apply), (attempts,
-    accepts))``."""
-    K = x.shape[0]
+    accepts))``.
+
+    On a mesh ``x`` holds this rank's ``rows`` of the K slots: ``apply()``
+    all-gathers the slots' states (:func:`..parallel.collectives.
+    all_gather_rows`), decides on the whole ladder with the uniforms every
+    rank draws whole, keeps its own rows of the permuted states and returns
+    its rows of the moves; the counts are the whole ladder's on every
+    rank."""
+    K = betas.shape[0]
     dev = x.device
     i_arr = torch.arange(K, device=dev)
     u = torch.empty(K, dtype=torch.float32, device=dev)
@@ -1506,8 +1612,9 @@ def _exchange(energy, x, betas, noise):
         noise.uniform(u, "exchange", a)
 
     def apply():
+        xs = x if mesh is None else all_gather_rows(mesh, x)
         with torch.no_grad():
-            vs = energy(x)
+            vs = energy(xs)
         parity = attempt % 2
         partner = torch.where((i_arr - parity) % 2 == 0, i_arr + 1, i_arr - 1)
         valid = (partner >= 0) & (partner < K)
@@ -1519,12 +1626,12 @@ def _exchange(energy, x, betas, noise):
         # log space (exp can overflow when the move is downhill)
         dlt = (betas[lo] - betas[hi]) * (vs[lo] - vs[hi])
         acc = valid & (torch.log(u[lo]) < dlt)  # symmetric within a pair
-        x.copy_(x[torch.where(acc, partner_c, i_arr)])
+        x.copy_(xs[torch.where(acc, partner_c, i_arr)[rows]])
         is_lo = valid & (i_arr == lo)
         att.add_(is_lo.to(torch.int32))
         accs.add_((is_lo & acc).to(torch.int32))
         attempt.add_(1)
-        return acc
+        return acc[rows]
 
     return (draw, apply), (att, accs)
 

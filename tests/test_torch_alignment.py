@@ -17,6 +17,7 @@ from colvarsfinder_tpu.ops.kabsch_pallas import (
     kabsch_rotations_pallas,
 )
 
+from colvarsfinder_tpu_torch import config as pconfig
 from colvarsfinder_tpu_torch.ops import _cuda
 from colvarsfinder_tpu_torch.ops import alignment as tal
 from colvarsfinder_tpu_torch.ops.kabsch_cuda import (
@@ -372,3 +373,85 @@ def test_svd_kabsch_second_derivative_matches_jax(jax_float64, kind):
                                atol=1e-11 * np.abs(g_j).max(), rtol=0)
     np.testing.assert_allclose(h_t.numpy(), h_j,
                                atol=1e-9 * np.abs(h_j).max(), rtol=0)
+
+
+def _mode_grads(lib, xp, C, coef, iters):
+    """The gradient of a weighted sum of rotation entries with respect to
+    normalized covariances, ``diff_steps`` left to the module's mode."""
+    def scalar(c):
+        c9 = tuple(c[:, i, j] for i in range(3) for j in range(3))
+        q = lib.quaternion_from_covariance(c9, newton_iters=iters)
+        return sum((r * w).sum()
+                   for r, w in zip(lib.quaternion_to_rotation_entries(*q),
+                                   coef))
+
+    coef = xp.asarray(coef)
+    if xp is torch:
+        Ct = torch.from_numpy(C).requires_grad_()
+        return torch.autograd.grad(scalar(Ct), Ct)[0].numpy()
+    return np.asarray(jax.grad(scalar)(jnp.asarray(C)))
+
+
+@pytest.mark.parametrize("mode", [0, 2])
+def test_newton_diff_mode_matches_jax(jax_float64, mode):
+    """In float64, ``newton_diff_mode`` changes the QCP solve's derivative
+    as the JAX package's does: with three Newton steps, short of
+    convergence, the unrolled (0) and implicit (2) gradients differ, and
+    each equals JAX's within 1e-8; through 16 steps, the layer's input
+    gradient equals JAX's layer gradient in the mode within 1e-8."""
+    C = _covariances(8, seed=12).astype(np.float64)
+    C /= np.linalg.norm(C.reshape(8, 9), axis=1)[:, None, None]
+    coef = np.random.default_rng(13).standard_normal((9, 8))
+    with tal.newton_diff_mode(mode), jal.newton_diff_mode(mode):
+        g_t = _mode_grads(tal, torch, C, coef, 3)
+        g_j = _mode_grads(jal, jnp, C, coef, 3)
+        other = 2 - mode
+        with tal.newton_diff_mode(other):
+            g_other = _mode_grads(tal, torch, C, coef, 3)
+        x, ref, idx = _frames(5, 8, 6, seed=14)
+        x, ref = x.astype(np.float64), ref.astype(np.float64)
+        w = np.random.default_rng(15).standard_normal(x.shape)
+
+        def jax_loss(xx):
+            o = jal.AlignmentLayer(ref, list(idx))(xx)
+            return (o**2 * w).sum()
+
+        g_layer_j = np.asarray(jax.grad(jax_loss)(jnp.asarray(x)))
+        pconfig.set_default_dtype("float64")  # the reference centred in it
+        try:
+            layer = tal.AlignmentLayer(ref, list(idx))
+        finally:
+            pconfig.set_default_dtype("float32")
+        g_layer_t = _torch_input_grad(layer, x, w)
+    np.testing.assert_allclose(g_layer_t, g_layer_j, rtol=0, atol=1e-8)
+    assert g_t.dtype == np.float64
+    np.testing.assert_allclose(g_t, g_j, rtol=0, atol=1e-8)
+    assert np.abs(g_t - g_other).max() > 1e-4
+
+
+def test_newton_diff_mode_is_restored_after_an_exception():
+    from colvarsfinder_tpu_torch.config import numerics_key
+
+    assert tal.DEFAULT_NEWTON_DIFF_STEPS == 0
+    with pytest.raises(RuntimeError, match="inside"):
+        with tal.newton_diff_mode(2):
+            assert tal.DEFAULT_NEWTON_DIFF_STEPS == 2
+            # captured epochs and sweeps key on the mode
+            assert numerics_key()[-1] == 2
+            with tal.newton_diff_mode(1):
+                assert tal.DEFAULT_NEWTON_DIFF_STEPS == 1
+            assert tal.DEFAULT_NEWTON_DIFF_STEPS == 2
+            raise RuntimeError("inside the block")
+    assert tal.DEFAULT_NEWTON_DIFF_STEPS == 0
+    assert numerics_key()[-1] == 0
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_show_info_prints_jax_text(capsys, weighted):
+    _, ref, idx = _frames(2, 9, 5, seed=16)
+    aw = np.arange(1.0, 6.0) if weighted else None
+    jal.AlignmentLayer(ref, idx, method="svd", align_weights=aw).show_info()
+    want = capsys.readouterr().out
+    tal.AlignmentLayer(ref, idx, method="svd", align_weights=aw).show_info()
+    assert capsys.readouterr().out == want
+    assert "5 align atoms, method=svd" in want

@@ -1,7 +1,10 @@
 """PyTorch port, the slice as a whole: transfer-operator EigenFunctionTask
 training with AlignmentLayer + position features against the JAX task, on
 the same numpy trajectory, transplanted initial weights and injected
-split; the port's own split against scikit-learn's; save_model's files."""
+split; the port's own split against scikit-learn's; save_model's files;
+``loss_func`` against the JAX task's in float64; the JAX package's batch
+layouts (``prebatch=`` / ``unroll_batches=``), which change no result, and
+their refusals."""
 
 import math
 
@@ -9,8 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from colvarsfinder_tpu import config as jconfig
+from colvarsfinder_tpu.core import CommittorTask as JaxComTask
 from colvarsfinder_tpu.core import EigenFunctionTask as JaxTask
+from colvarsfinder_tpu.core import RegAutoEncoderTask as JaxRegTask
 from colvarsfinder_tpu.models import EigenFunctions as JaxEigenFunctions
+from colvarsfinder_tpu.models import RegAutoEncoder as JaxRegAE
+from colvarsfinder_tpu.models import create_sequential_nn as jax_seq
 from colvarsfinder_tpu.ops.alignment import AlignmentLayer as JaxAlign
 from colvarsfinder_tpu.ops.features import Feature as JaxFeature
 from colvarsfinder_tpu.ops.features import FeatureLayer as JaxFeatureLayer
@@ -19,13 +27,18 @@ from colvarsfinder_tpu.utils import WeightedTrajectory as JaxTraj
 
 from colvarsfinder_tpu_torch import (
     AlignmentLayer,
+    CommittorTask,
     EigenFunctions,
     EigenFunctionTask,
     Feature,
     FeatureLayer,
     PreprocessingANN,
+    RegAutoEncoder,
+    RegAutoEncoderTask,
     WeightedTrajectory,
+    create_sequential_nn,
 )
+from colvarsfinder_tpu_torch import config as pconfig
 from colvarsfinder_tpu_torch.core.task import train_test_split
 from colvarsfinder_tpu_torch.ops import _cuda
 
@@ -212,3 +225,132 @@ def test_task_guards(jax_run, tmp_path):
         EigenFunctionTask(traj, None, EigenFunctions([18, 512, 512, 1], 2),
                           str(tmp_path), device="cpu", fused_step=True,
                           **{**COMMON, "save_model_every_step": 0})
+
+
+@pytest.fixture
+def f64():
+    """Both packages in float64, float32 restored afterwards."""
+    jconfig.set_default_dtype("float64")
+    pconfig.set_default_dtype("float64")
+    yield
+    jconfig.set_default_dtype("float32")
+    pconfig.set_default_dtype("float32")
+
+
+@pytest.mark.parametrize("lag", [LAG, 0], ids=["transfer", "generator"])
+def test_loss_func_matches_jax(f64, tmp_path, lag):
+    """One batch through both tasks' ``loss_func`` in float64: the loss,
+    eigenvalues, non-penalty loss and penalty within 1e-9, the same cvec;
+    the generator with a non-uniform ``diag_coeff`` and beta 2."""
+    x, w = _trajectory()
+    x = x.astype(np.float64)
+    jm = JaxEigenFunctions(DIMS, K, seed=3)
+    params = [{n: np.asarray(v) for n, v in p.items()} for p in jm.params]
+    common = {**COMMON, "lag_tau": lag * DT, "save_model_every_step": 0}
+    if lag == 0:
+        common.update(beta=2.0, diag_coeff=np.random.default_rng(4).uniform(
+            0.5, 2.0, 3 * N_ATOMS))
+    atoms = list(range(N_ATOMS))
+    jpp = JaxPP(JaxAlign(x[0], atoms),
+                JaxFeatureLayer([JaxFeature("p", "position", atoms)]))
+    tpp = PreprocessingANN(AlignmentLayer(x[0], atoms),
+                           FeatureLayer([Feature("p", "position", atoms)]))
+    jtask = JaxTask(JaxTraj(trajectory=x, weights=w, dt=DT, verbose=False),
+                    jpp, jm, str(tmp_path / "j"), export_cv=False, **common)
+    ttask = EigenFunctionTask(
+        WeightedTrajectory(trajectory=x, weights=w, dt=DT, verbose=False),
+        tpp, EigenFunctions.from_numpy(params), str(tmp_path / "t"),
+        device="cpu", **common)
+    n = 300
+    batch = (x[:n], w[:n]) + ((x[lag:n + lag], w[lag:n + lag]) if lag
+                              else (None, None))
+    jout = jtask.loss_func(*batch)
+    tout = ttask.loss_func(*batch)
+    assert tout[0].dtype == torch.float64 and tout[0].requires_grad
+    for name, a, b in zip(("loss", "eig_vals", "non_penalty", "penalty"),
+                          tout[:4], jout[:4]):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b),
+                                   rtol=0, atol=1e-9, err_msg=name)
+    np.testing.assert_array_equal(tout[4].numpy(), np.asarray(jout[4]))
+
+
+@pytest.fixture(scope="module")
+def default_curves(jax_run, tmp_path_factory):
+    task = _port_task(jax_run, tmp_path_factory.mktemp("layout"), False)
+    task.train()
+    return task.train_loss, task.test_loss
+
+
+@pytest.mark.parametrize("layout", [
+    dict(prebatch=True), dict(prebatch=False), dict(unroll_batches=True),
+    dict(unroll_batches=False)], ids=["prebatch", "gather_per_step",
+                                      "unrolled", "scanned"])
+def test_batch_layouts_leave_the_curves_unchanged(jax_run, default_curves,
+                                                  tmp_path, layout):
+    task = _port_task(jax_run, tmp_path, False, **layout)
+    task.train()
+    np.testing.assert_array_equal(task.train_loss, default_curves[0])
+    np.testing.assert_array_equal(task.test_loss, default_curves[1])
+
+
+def _flat_task(lib, family, path, **kw):
+    """A small task of ``family`` on flat 4-dimensional frames, through the
+    JAX package (``lib='jax'``) or the port."""
+    rng = np.random.default_rng(5)
+    x = np.cumsum(0.1 * rng.standard_normal((400, 4)), axis=0).astype(
+        np.float32)
+    jax = lib == "jax"
+    traj = (JaxTraj if jax else WeightedTrajectory)(trajectory=x, dt=DT,
+                                                    verbose=False)
+    args = dict(batch_size=100, num_epochs=2, test_ratio=0.25,
+                save_model_every_step=0, verbose=False, debug_mode=False,
+                tensorboard=False, seed=0, **kw)
+    if not jax:
+        args["device"] = "cpu"
+    if family == "eigen":
+        model = (JaxEigenFunctions([4, 6, 1], 2, seed=1) if jax
+                 else EigenFunctions([4, 6, 1], 2))
+        cls = JaxTask if jax else EigenFunctionTask
+        args.update(alpha=1.0, eig_weights=[1.0, 0.5], lag_tau=DT, k=2)
+    elif family == "regae":
+        dims = ([4, 6, 2], [2, 6, 4], [2, 5, 1])
+        model = JaxRegAE(*dims, K=2, seed=1) if jax else RegAutoEncoder(
+            *dims, 2)
+        cls = JaxRegTask if jax else RegAutoEncoderTask
+        args.update(eig_weights=[1.0, 0.5], gamma=(0.5, 0.0), lag_tau_reg=DT)
+    else:
+        model = jax_seq([4, 6, 1], seed=1) if jax else create_sequential_nn(
+            [4, 6, 1])
+        cls = JaxComTask if jax else CommittorTask
+        args.update(region_a=x[:, 0] < np.quantile(x[:, 0], 0.2),
+                    region_b=x[:, 0] > np.quantile(x[:, 0], 0.8))
+    return cls(traj, None, model, str(path), **args)
+
+
+@pytest.mark.parametrize("family,layout", [
+    ("regae", dict(prebatch=True)), ("regae", dict(prebatch=False)),
+    ("committor", dict(unroll_batches=True)),
+    ("committor", dict(unroll_batches=False))])
+def test_other_families_accept_the_layouts(tmp_path, family, layout):
+    plain = _flat_task("port", family, tmp_path / "a")
+    plain.train()
+    task = _flat_task("port", family, tmp_path / "b", **layout)
+    task.train()
+    np.testing.assert_array_equal(task.train_loss, plain.train_loss)
+
+
+@pytest.mark.parametrize("family", ["eigen", "regae"])
+def test_streaming_refuses_per_step_gathers_as_jax(tmp_path, family):
+    """``streaming=True`` with ``prebatch=False`` raises ``ValueError``
+    where the JAX package asserts, with its message."""
+    with pytest.raises(AssertionError) as jerr:
+        _flat_task("jax", family, tmp_path / "j", streaming=True,
+                   prebatch=False, export_cv=False)
+    with pytest.raises(ValueError) as terr:
+        _flat_task("port", family, tmp_path / "t", streaming=True,
+                   prebatch=False)
+    assert str(terr.value) == str(jerr.value)
+    assert "prebatch=False" in str(terr.value)
+    with pytest.raises(ValueError, match="incompatible with shard_traj"):
+        _flat_task("port", family, tmp_path / "s", prebatch=True,
+                   shard_trajectory=True)

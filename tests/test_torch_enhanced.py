@@ -358,21 +358,64 @@ def test_validation_errors_match_jax(case):
     assert str(terr.value) == str(jerr.value)
 
 
-def test_mesh_is_roadmap_item_14b():
-    tw, ang = triple_well(torch), angle(torch)
-    calls = (
-        lambda: tenh.integrate_sde_metadynamics(tw, ang, 20,
-                                                deposit_interval=10,
-                                                mesh=object()),
-        lambda: tenh.integrate_sde_umbrella(tw, ang, [0.0, 1.0], 5.0, 10,
-                                            mesh=object()),
-        lambda: tenh.integrate_sde_steered(tw, ang, 0.0, 1.0, 5.0, 100,
-                                           pre_steps=1, mesh=object()),
-        lambda: tenh.integrate_sde_remd(tw, [1.0, 2.0], 10, mesh=object()),
+class _TwoRanks:
+    """What the samplers read of a 1-axis ``DeviceMesh`` of two ranks
+    before any work (``parallel.mesh.mesh_coords``)."""
+
+    mesh_dim_names = ("data",)
+
+    def __init__(self, device_type="cpu"):
+        self.device_type = device_type
+
+    def get_local_rank(self):
+        return 0
+
+    def size(self):
+        return 2
+
+    def get_group(self):
+        return None
+
+
+def _odd_counts(lib, xp, mesh, **kw):
+    """Each sampler with three walkers, windows, pulls or slots."""
+    tw, ang = triple_well(xp), angle(xp)
+    kw = dict(kw, mesh=mesh, verbose=False)
+    return (
+        lambda: lib.integrate_sde_metadynamics(tw, ang, 20,
+                                               deposit_interval=10,
+                                               n_chains=3, **kw),
+        lambda: lib.integrate_sde_umbrella(tw, ang, [0.0, 0.5, 1.0], 5.0, 10,
+                                           **kw),
+        lambda: lib.integrate_sde_steered(tw, ang, 0.0, 1.0, 5.0, 100,
+                                          n_realizations=3, pre_steps=1,
+                                          **kw),
+        lambda: lib.integrate_sde_remd(tw, [1.0, 2.0, 3.0], 10, **kw),
     )
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 14b"):
-            call()
+
+
+def test_mesh_is_roadmap_item_14b():
+    """``mesh=`` (ROADMAP item 14b, done): a count that does not divide over
+    the mesh's ranks raises the JAX package's ``ValueError`` word for word
+    before any work, and so does a mesh over other devices than the
+    call's. Meshed runs are held against JAX in
+    ``tests/test_torch_mesh_samplers.py``."""
+    import jax
+    from jax.sharding import Mesh
+
+    jmesh = Mesh(jax.devices()[:2], ("data",))
+    for jcall, tcall in zip(_odd_counts(jenh, jnp, jmesh),
+                            _odd_counts(tenh, torch, _TwoRanks(),
+                                        device="cpu")):
+        with pytest.raises(ValueError, match="divisible") as jerr:
+            jcall()
+        with pytest.raises(ValueError, match="divisible") as terr:
+            tcall()
+        assert str(terr.value) == str(jerr.value)
+    tw, ang = triple_well(torch), angle(torch)
+    with pytest.raises(ValueError, match="the mesh is over 'cuda'"):
+        tenh.integrate_sde_umbrella(tw, ang, [0.0, 1.0], 5.0, 10,
+                                    mesh=_TwoRanks("cuda"), device="cpu")
 
 
 def test_samplers_refuse_a_numpy_potential():

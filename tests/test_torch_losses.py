@@ -98,3 +98,32 @@ def test_quirks_are_kept():
     sorted_np = (torch.tensor(EIG_W) * num[c] / (var[c] + varl[c])).sum() / (
         CONST["traj_dt"] * CONST["lag_idx"])
     assert not torch.isclose(aux.non_penalty_loss, sorted_np, rtol=1e-3)
+
+
+@pytest.mark.parametrize("sort", [True, False])
+def test_fuse_lagged_equals_two_passes(sort):
+    """``fuse_lagged=True`` runs X and X_lagged through one forward of their
+    concatenation: in float64 the loss, its parts and the parameter
+    gradients equal the two-pass default within 1e-12; with ``pp_gram`` it
+    is ignored, as in the JAX package."""
+    _, tm, data = _case(2)
+    tm = tm.double()
+    X, w, Xl, wl = [torch.from_numpy(a.astype(np.float64)) for a in data]
+    out = {}
+    for fuse in (False, True):
+        tm.zero_grad()
+        loss, aux = eigen_loss(tm, Identity(), X, w, Xl, wl, fuse_lagged=fuse,
+                               sort_eigvals=sort, **CONST)
+        loss.backward()
+        out[fuse] = [t.detach() for t in (loss, aux.eig_vals,
+                                          aux.non_penalty_loss, aux.penalty)]
+        out[fuse] += [p.grad.clone() for p in tm.parameters()]
+        assert torch.equal(aux.cvec, out.setdefault("cvec", aux.cvec))
+    for a, b in zip(out[True], out[False]):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=0, atol=1e-12)
+    gram = dict(CONST, lag_idx=0, sort_eigvals=sort)
+    M = torch.eye(8, dtype=torch.float64).expand(300, 8, 8)
+    a = eigen_loss(tm, None, X, w, None, None, pp_gram=M, **gram)[0]
+    b = eigen_loss(tm, None, X, w, None, None, pp_gram=M, fuse_lagged=True,
+                   **gram)[0]
+    assert torch.equal(a, b)

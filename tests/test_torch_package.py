@@ -54,7 +54,11 @@ def test_no_source_names_jax_or_the_jax_package():
     )
     examples = sorted((REPO / "examples" / "torch").glob("*.py"))
     assert len(examples) == 7
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
+    # the test workers that run the port in processes of their own
+    workers = sorted((REPO / "tests").glob("torch_*worker.py"))
+    assert len(workers) == 2
+    files = (sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"] + examples
+             + workers)
     assert len(files) > 15
     for f in files:
         hits = pattern.findall(f.read_text())
