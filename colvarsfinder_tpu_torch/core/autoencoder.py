@@ -135,13 +135,11 @@ class AutoEncoderTask(TrainingTask):
         )
 
     # ------------------------------------------------------------------
-    def _prepare_data(self):
+    def _prepare(self):
         """``(train, test, train_b, test_b, rows)`` with ``(X, w)`` per
         batch, ``X`` the batch's features; the batches are positions within
         the split (``autoencoder.py:288-300``); ``rows`` [nb_train +
         nb_test, 1]."""
-        if self._prepared is not None:
-            return self._prepared
         train_idx, test_idx = self._make_split(self._feature_traj.shape[0])
         train_b = train_idx[self._make_batches(np.arange(len(train_idx)),
                                                self.batch_size)]
@@ -150,8 +148,7 @@ class AutoEncoderTask(TrainingTask):
         train_b, test_b = self._rank_batches(train_b, test_b)
         rows = self._metric_rows(len(train_b) + len(test_b), 1)
         if self._streaming:
-            self._prepared = (None, None, train_b, test_b, rows)
-            return self._prepared
+            return None, None, train_b, test_b, rows
 
         def pack(rows):
             out = []
@@ -160,8 +157,7 @@ class AutoEncoderTask(TrainingTask):
                 out.append((self._feature_traj[i], self._weights[i]))
             return out
 
-        self._prepared = (pack(train_b), pack(test_b), train_b, test_b, rows)
-        return self._prepared
+        return pack(train_b), pack(test_b), train_b, test_b, rows
 
     def _stream_pack(self, rows):
         """``(X, w)`` of the frames ``rows`` as host gathers of the

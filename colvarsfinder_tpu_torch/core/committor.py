@@ -195,12 +195,10 @@ class CommittorTask(TrainingTask):
             return self.committor_fn()(X).cpu().numpy()
 
     # ------------------------------------------------------------------
-    def _prepare_data(self):
+    def _prepare(self):
         """``(train, test, train_b, test_b, rows)`` with ``(X, w, a, b)``
         per batch, or ``(H, M, w, a, b)`` on the Gram path; ``rows``
         [nb_train + nb_test, 4]."""
-        if self._prepared is not None:
-            return self._prepared
         train_idx, test_idx = self._make_split(self._n_frames)
         train_b = train_idx[self._make_batches(np.arange(len(train_idx)),
                                                self.batch_size)]
@@ -224,8 +222,7 @@ class CommittorTask(TrainingTask):
         if self._streaming:
             self._masks_np = (self._mask_a.astype(numpy_dtype()),
                               self._mask_b.astype(numpy_dtype()))
-            self._prepared = (None, None, train_b, test_b, rows)
-            return self._prepared
+            return None, None, train_b, test_b, rows
         dt = default_dtype()
         mask_a = torch.as_tensor(self._mask_a, dtype=dt, device=self.device)
         mask_b = torch.as_tensor(self._mask_b, dtype=dt, device=self.device)
@@ -243,8 +240,7 @@ class CommittorTask(TrainingTask):
                     out.append((X,) + rest)
             return out
 
-        self._prepared = (pack(train_b), pack(test_b), train_b, test_b, rows)
-        return self._prepared
+        return pack(train_b), pack(test_b), train_b, test_b, rows
 
     def _stream_pack(self, rows):
         """``(X, w, a, b)`` of the frames ``rows`` as host gathers, the

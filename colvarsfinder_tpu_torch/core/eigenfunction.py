@@ -338,13 +338,11 @@ class EigenFunctionTask(TrainingTask):
         )
         return loss, aux.eig_vals, aux.non_penalty_loss, aux.penalty, aux.cvec
 
-    def _prepare_data(self):
+    def _prepare(self):
         """``(train, test, train_b, test_b, rows)``: per batch
         ``(X, X_l, w, w_l)`` (transfer operator), ``(X, w)`` (generator) or
         ``(H, M, w)`` (generator, Gram path); ``rows`` [nb_train + nb_test,
         3 + 2k], the cvec in the last k columns."""
-        if self._prepared is not None:
-            return self._prepared
         train_idx, test_idx = self._lagged_split(self.lag_idx)
         train_b, test_b = self._rank_batches(
             self._make_batches(train_idx, self.batch_size),
@@ -353,8 +351,7 @@ class EigenFunctionTask(TrainingTask):
         rows = self._metric_rows(len(train_b) + len(test_b),
                                  len(self.loss_names) + self.k)
         if self._streaming:
-            self._prepared = (None, None, train_b, test_b, rows)
-            return self._prepared
+            return None, None, train_b, test_b, rows
         m_dtype = (torch.bfloat16 if self._gram_dtype == "bfloat16"
                    else self._traj.dtype)
 
@@ -374,8 +371,7 @@ class EigenFunctionTask(TrainingTask):
                     out.append((X, w))
             return out
 
-        self._prepared = (pack(train_b), pack(test_b), train_b, test_b, rows)
-        return self._prepared
+        return pack(train_b), pack(test_b), train_b, test_b, rows
 
     def _stream_pack(self, rows):
         """``(X, X_l, w, w_l)`` (transfer operator) or ``(X, w)``

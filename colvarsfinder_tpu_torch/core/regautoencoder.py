@@ -294,7 +294,7 @@ class RegAutoEncoderTask(TrainingTask):
             lag_idx=self.lag_idx, traj_dt=self.traj_dt)
 
     # ------------------------------------------------------------------
-    def _prepare_data(self):
+    def _prepare(self):
         """``(train, test, train_b, test_b, rows)``: per batch ``(X, X_ae,
         X_l, w, w_l)`` with ``X_ae`` (``X`` lagged by ``lag_tau_ae``) only
         for a lagged reconstruction and ``X_l``, ``w_l`` only for the
@@ -302,8 +302,6 @@ class RegAutoEncoderTask(TrainingTask):
         H_ae, M, w)`` of features; ``rows`` [nb_train + nb_test,
         7 + 2K], the cvec in the last K columns
         (``regautoencoder.py:704-855``)."""
-        if self._prepared is not None:
-            return self._prepared
         train_idx, test_idx = self._lagged_split(max(self.lag_idx,
                                                      self.lag_ae_idx))
         train_b, test_b = self._rank_batches(
@@ -313,8 +311,7 @@ class RegAutoEncoderTask(TrainingTask):
         rows = self._metric_rows(len(train_b) + len(test_b),
                                  len(self.loss_names) + self.num_reg)
         if self._streaming:
-            self._prepared = (None, None, train_b, test_b, rows)
-            return self._prepared
+            return None, None, train_b, test_b, rows
         ae_on, eig_on, _ = self._gates()
         ae_lag = ae_on and self.lag_ae_idx > 0
         eig_lag = eig_on and self.lag_idx > 0
@@ -342,8 +339,7 @@ class RegAutoEncoderTask(TrainingTask):
                     out.append((X, X_ae, None, w, None))
             return out
 
-        self._prepared = (pack(train_b), pack(test_b), train_b, test_b, rows)
-        return self._prepared
+        return pack(train_b), pack(test_b), train_b, test_b, rows
 
     def _stream_pack(self, rows):
         """``(X, X_ae, X_l, w, w_l)`` of the frames ``rows`` as host

@@ -55,11 +55,12 @@ epoch.
 from __future__ import annotations
 
 import gc
+import inspect
 import math
 import os
 import time
 import warnings
-from abc import ABC, abstractmethod
+from abc import ABCMeta, abstractmethod
 from collections import deque
 from typing import NamedTuple, Optional
 
@@ -70,7 +71,7 @@ import torch.distributed as dist
 from .. import checkpoint
 from ..config import default_dtype, numerics_key, resolve_device
 from ..export import export_colvar
-from ..logging_utils import MetricsWriter, profile_trace
+from ..logging_utils import MetricsWriter, profile_trace, span
 from ..ops import _cuda
 from ..ops.features import Identity
 from ..parallel.collectives import all_reduce_grads, gather_rows
@@ -139,32 +140,50 @@ def capture_epoch(body, device, key_fn,
     Python's cyclic garbage collector is run before the capture and held
     off during it: a graph that died in a reference cycle would otherwise
     be destroyed whenever the collector runs, and destroying a graph
-    invalidates a capture in progress."""
-    current = torch.cuda.current_stream(device)
-    stream = torch.cuda.Stream(device)
-    stream.wait_stream(current)
-    with torch.cuda.stream(stream):
-        body()
-    key, held = key_fn()
-    graph = torch.cuda.CUDAGraph()
-    gc.collect()
-    gc.disable()
-    try:
-        with _cuda.capture_launches() as launches, \
-                torch.cuda.graph(graph, stream=stream):
+    invalidates a capture in progress.
+
+    The eager epoch and the capture are one ``cvf.graph.capture`` span."""
+    with span("cvf.graph.capture", what=what):
+        current = torch.cuda.current_stream(device)
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
             body()
-    except RuntimeError as err:
-        raise RuntimeError(
-            f"capturing {what} as a CUDA graph failed (a host sync or a "
-            f"call that capture forbids inside it?): {err}"
-        ) from err
-    finally:
-        gc.enable()
-    current.wait_stream(stream)
+        key, held = key_fn()
+        graph = torch.cuda.CUDAGraph()
+        gc.collect()
+        gc.disable()
+        try:
+            with _cuda.capture_launches() as launches, \
+                    torch.cuda.graph(graph, stream=stream):
+                body()
+        except RuntimeError as err:
+            raise RuntimeError(
+                f"capturing {what} as a CUDA graph failed (a host sync or a "
+                f"call that capture forbids inside it?): {err}"
+            ) from err
+        finally:
+            gc.enable()
+        current.wait_stream(stream)
     return CapturedEpoch(graph, launches, key, held)
 
 
-class TrainingTask(ABC):
+class _Traced(ABCMeta):
+    """A task's whole construction, its subclass's included, is one
+    ``cvf.task.init`` span."""
+
+    def __call__(cls, *args, **kwargs):
+        with span("cvf.task.init", task=cls.__name__):
+            return super().__call__(*args, **kwargs)
+
+    @property
+    def __signature__(cls):
+        # the constructor's, which ``inspect`` would take from __call__
+        sig = inspect.signature(cls.__init__)
+        return sig.replace(parameters=list(sig.parameters.values())[1:])
+
+
+class TrainingTask(metaclass=_Traced):
     r"""Abstract base class of training tasks.
 
     Args:
@@ -577,19 +596,24 @@ class TrainingTask(ABC):
             if any(g.key != key for g in graphs):
                 self._drop_graph()
 
-    def _run_epoch(self, body) -> None:
-        """One epoch of ``body()``. The CPU runs it eagerly. The card
-        replays its captured graph; without one, it runs ``body()`` eagerly
-        on the capture stream (a real epoch, which also initialises Adam's
-        state, the cuBLAS handles and the kernel libraries) and then
-        captures it. A capture that fails raises: nothing falls back to
-        eager on the card."""
-        if self.device.type != "cuda" or self._eager_on_card:
-            body()
-        elif self._graph is not None:
-            _cuda.replay(self._graph.graph, self._graph.launches)
-        else:
-            self._graph = capture_epoch(body, self.device, self._graph_key)
+    def _run_epoch(self, body, epoch: int) -> None:
+        """Epoch ``epoch`` of ``body()``, one ``cvf.epoch.issue`` span. The
+        CPU runs it eagerly. The card replays its captured graph (the span
+        has ``replay=True``); without one, it runs ``body()`` eagerly on the
+        capture stream (a real epoch, which also initialises Adam's state,
+        the cuBLAS handles and the kernel libraries) and then captures it.
+        A capture that fails raises: nothing falls back to eager on the
+        card."""
+        eager = self.device.type != "cuda" or self._eager_on_card
+        graph = None if eager else self._graph
+        with span("cvf.epoch.issue", epoch=epoch, replay=graph is not None):
+            if eager:
+                body()
+            elif graph is not None:
+                _cuda.replay(graph.graph, graph.launches)
+            else:
+                self._graph = capture_epoch(body, self.device,
+                                            self._graph_key)
 
     def release_device_data(self) -> None:
         """Drop the prepared device batches and the captured epoch with its
@@ -665,13 +689,22 @@ class TrainingTask(ABC):
 
     # ------------------------------------------------------------------
     # the epoch loop shared by the tasks
-    @abstractmethod
     def _prepare_data(self):
         """Batches gathered onto the device once, and the buffer of an
         epoch's metric rows: ``(train, test, train_b, test_b, rows)``, with
         a tuple of tensors per batch for :meth:`_batch_metrics` and
         ``rows`` [nb_train + nb_test, width]. A captured epoch reads and
-        writes them in place."""
+        writes them in place. They are prepared by :meth:`_prepare`, in a
+        ``cvf.task.prepare`` span, once, and kept until
+        :meth:`release_device_data`."""
+        if self._prepared is None:
+            with span("cvf.task.prepare", task=self.model_name):
+                self._prepared = self._prepare()
+        return self._prepared
+
+    @abstractmethod
+    def _prepare(self):
+        """What :meth:`_prepare_data` returns, prepared anew."""
 
     @abstractmethod
     def _batch_metrics(self, *batch):
@@ -1058,8 +1091,15 @@ class TrainingTask(ABC):
 
     def train(self):
         """Train the model; fills :attr:`train_loss` / :attr:`test_loss`
-        (per-epoch mean metrics with columns :attr:`loss_names`)."""
-        with profile_trace(self.profile_dir, self.device):
+        (per-epoch mean metrics with columns :attr:`loss_names`). The call
+        is one ``cvf.task.train`` span; each chunk of epochs between two
+        host events is a ``cvf.epoch.chunk`` span holding each epoch's
+        ``cvf.epoch.issue`` and the chunk's ``cvf.epoch.fetch``, and a
+        ``cvf.epoch.record`` span follows it (the host's bookkeeping:
+        losses, scalars, progress, checkpoints, plots).
+        :attr:`epoch_times` holds each epoch's share of its chunk span."""
+        with profile_trace(self.profile_dir, self.device), \
+                span("cvf.task.train", task=self.model_name):
             self._train()
 
     def _train(self):
@@ -1079,51 +1119,55 @@ class TrainingTask(ABC):
         epoch = 0
         while epoch < self.num_epochs:
             chunk = self._next_chunk(epoch)
-            t0 = time.perf_counter()
-            self._check_graph()
-            if self._streaming:
-                chunk_rows = self._stream_epochs(chunk, train_b, test_b,
-                                                 rows)
-            else:
-                chunk_rows = torch.empty((chunk,) + rows.shape,
-                                         dtype=rows.dtype, device=rows.device)
+            with span("cvf.epoch.chunk", epochs=chunk) as timed:
+                self._check_graph()
+                if self._streaming:
+                    chunk_rows = self._stream_epochs(chunk, train_b, test_b,
+                                                     rows)
+                else:
+                    chunk_rows = torch.empty((chunk,) + rows.shape,
+                                             dtype=rows.dtype,
+                                             device=rows.device)
+                    for j in range(chunk):
+                        self._run_epoch(body, epoch + j)
+                        chunk_rows[j].copy_(rows)
+                # one device->host fetch per chunk
+                with span("cvf.epoch.fetch"):
+                    cm = chunk_rows.cpu().numpy()
+            chunk_time = timed.seconds / chunk
+            with span("cvf.epoch.record", epochs=chunk):
+                train_cm, test_cm = cm[:, :nb_train], cm[:, nb_train:]
+                self._chunk_fetched(train_cm)
+
                 for j in range(chunk):
-                    self._run_epoch(body)
-                    chunk_rows[j].copy_(rows)
-            # one device->host fetch per chunk
-            cm = chunk_rows.cpu().numpy()
-            train_cm, test_cm = cm[:, :nb_train], cm[:, nb_train:]
-            chunk_time = (time.perf_counter() - t0) / chunk
-            self._chunk_fetched(train_cm)
+                    train_m = train_cm[j, :, :n_metrics]
+                    test_m = test_cm[j, :, :n_metrics]
+                    self.loss_list.append([train_m, test_m])
+                    train_means.append(train_m.mean(axis=0))
+                    test_means.append(test_m.mean(axis=0))
+                    self.writer.add_scalars_split(
+                        self.loss_names, train_means[-1], test_means[-1],
+                        epoch + j,
+                    )
+                    self.epoch_times.append(chunk_time)
+                epoch += chunk
+                e = epoch - 1
+                self._print_progress(epoch, float(train_means[-1][0]),
+                                     chunk_time)
 
-            for j in range(chunk):
-                train_m = train_cm[j, :, :n_metrics]
-                test_m = test_cm[j, :, :n_metrics]
-                self.loss_list.append([train_m, test_m])
-                train_means.append(train_m.mean(axis=0))
-                test_means.append(test_m.mean(axis=0))
-                self.writer.add_scalars_split(
-                    self.loss_names, train_means[-1], test_means[-1],
-                    epoch + j,
-                )
-                self.epoch_times.append(chunk_time)
-            epoch += chunk
-            e = epoch - 1
-            self._print_progress(epoch, float(train_means[-1][0]), chunk_time)
+                if (self.save_model_every_step > 0
+                        and e % self.save_model_every_step
+                        == self.save_model_every_step - 1):
+                    self.save_model(e)
+                    last_loss = float(train_cm[-1, -1, 0])
+                    if last_loss < min_loss:  # reference quirk: last-batch loss
+                        min_loss = last_loss
+                        self.save_model(e, "best")
 
-            if (self.save_model_every_step > 0
-                    and e % self.save_model_every_step
-                    == self.save_model_every_step - 1):
-                self.save_model(e)
-                last_loss = float(train_cm[-1, -1, 0])
-                if last_loss < min_loss:  # reference quirk: last-batch loss
-                    min_loss = last_loss
-                    self.save_model(e, "best")
-
-            if (self.plot_frequency > 0
-                    and e % self.plot_frequency == self.plot_frequency - 1
-                    and self.plot_class is not None and self._rank == 0):
-                self._plot(e)
+                if (self.plot_frequency > 0
+                        and e % self.plot_frequency == self.plot_frequency - 1
+                        and self.plot_class is not None and self._rank == 0):
+                    self._plot(e)
 
         shape = (0, n_metrics)
         self.train_loss = np.stack(train_means) if train_means else np.zeros(shape)

@@ -9,11 +9,12 @@ hash of the sources and flags, so an edited source is rebuilt.
 :func:`build_copies` builds copies of a source with textual edits (phase
 ablations, exactness checks against a variant).
 
-Each wrapper counts its launches in :data:`LAUNCHES` on the host. A CUDA
-graph replay runs no Python, so a capture is taken inside
-:func:`capture_launches`, which records what the graph holds and takes it
-back out of the counts, and every replay goes through :func:`replay`, which
-adds it.
+Each wrapper counts its launches on the host, in the recorder's counter
+``cvf.kernel.launches.<name>`` (:func:`..logging_utils.count`);
+:func:`launch_counts` and :data:`LAUNCHES` read them. A CUDA graph replay
+runs no Python, so a capture is taken inside :func:`capture_launches`,
+which records what the graph holds and takes it back out of the counts,
+and every replay goes through :func:`replay`, which adds it.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -29,9 +30,14 @@ import shutil
 import subprocess
 import threading
 import time
+from collections.abc import MutableMapping
 from pathlib import Path
 
+from ..logging_utils import count, counters
+
 __all__ = [
+    "COUNTER",
+    "KERNELS",
     "LAUNCHES",
     "build_all",
     "build_copies",
@@ -70,21 +76,49 @@ _SIGNATURES = {
     },
 }
 
-#: launches of each kernel wrapper since the last reset; a wrapper adds one
-#: where it launches its kernel and nowhere else
-LAUNCHES = {"kabsch_qcp": 0, "fused_align": 0, "stats_fwd": 0, "stats_bwd": 0}
+#: the kernel wrappers, each counting its launches in the recorder's
+#: counter ``COUNTER + name``, where it launches its kernel and nowhere else
+KERNELS = ("kabsch_qcp", "fused_align", "stats_fwd", "stats_bwd")
+COUNTER = "cvf.kernel.launches."
+
+
+class _Launches(MutableMapping):
+    """The launch counters of :data:`KERNELS` as a mapping by wrapper name:
+    reading one reads the recorder's counter, setting one sets it."""
+
+    def __getitem__(self, name: str) -> int:
+        if name not in KERNELS:
+            raise KeyError(name)
+        return counters().get(COUNTER + name, 0)
+
+    def __setitem__(self, name: str, value: int) -> None:
+        count(COUNTER + name, value - self[name])
+
+    def __delitem__(self, name: str) -> None:
+        raise TypeError("the launch counters are fixed")
+
+    def __iter__(self):
+        return iter(KERNELS)
+
+    def __len__(self) -> int:
+        return len(KERNELS)
+
+
+#: launches of each kernel wrapper since the last reset
+LAUNCHES = _Launches()
 
 _LIBS: dict = {}
 _LOCK = threading.Lock()
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
+    for name in KERNELS:
         LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict:
-    return dict(LAUNCHES)
+    now = counters()
+    return {name: now.get(COUNTER + name, 0) for name in KERNELS}
 
 
 @contextlib.contextmanager
@@ -93,13 +127,14 @@ def capture_launches():
     with the launches each wrapper counted inside (the launches the graph
     holds), and takes them back out of :data:`LAUNCHES`, since a capture
     runs nothing."""
-    before = dict(LAUNCHES)
+    before = launch_counts()
     held: dict = {}
     try:
         yield held
     finally:
-        for name in LAUNCHES:
-            held[name] = LAUNCHES[name] - before[name]
+        after = launch_counts()
+        for name in KERNELS:
+            held[name] = after[name] - before[name]
             LAUNCHES[name] = before[name]
 
 
@@ -108,7 +143,8 @@ def replay(graph, launches: dict) -> None:
     (``launches``, from :func:`capture_launches`)."""
     graph.replay()
     for name, n in launches.items():
-        LAUNCHES[name] += n
+        if n:
+            count(COUNTER + name, n)
 
 
 def _nvcc() -> str:

@@ -42,6 +42,7 @@ from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
+from ..logging_utils import count
 from . import _cuda
 from ..models.module import _tanh_precise as _act
 
@@ -278,7 +279,7 @@ def stats_fwd_launch(flat, F, F_l, w, w_l, dims: Tuple[int, ...], k: int):
         _cuda.stream_handle(),
     )
     _cuda.check(err, "cvf_stats_fwd")
-    _cuda.LAUNCHES["stats_fwd"] += 1
+    count(_cuda.COUNTER + "stats_fwd")
     return stats, Y
 
 
@@ -311,7 +312,7 @@ def stats_bwd_launch(flat, F, F_l, w, w_l, Y, d_stats,
         shape.smem_bytes, _cuda.stream_handle(),
     )
     _cuda.check(err, "cvf_stats_bwd")
-    _cuda.LAUNCHES["stats_bwd"] += 1
+    count(_cuda.COUNTER + "stats_bwd")
     return grads
 
 

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..logging_utils import count
 from . import _cuda
 from .alignment import align_frames, kabsch_rotations_quat, kabsch_rotations_svd
 from .fused_eigen import SMEM_LIMIT
@@ -157,7 +158,7 @@ def kabsch_qcp_launch(C: torch.Tensor, tile: int = KABSCH_TILE) -> torch.Tensor:
         C.data_ptr(), R.data_ptr(), C.shape[0], tile, _cuda.stream_handle()
     )
     _cuda.check(err, "cvf_kabsch_qcp")
-    _cuda.LAUNCHES["kabsch_qcp"] += 1
+    count(_cuda.COUNTER + "kabsch_qcp")
     return R
 
 
@@ -183,7 +184,7 @@ def fused_align_launch(x: torch.Tensor, ref: torch.Tensor,
         _cuda.stream_handle(),
     )
     _cuda.check(err, "cvf_fused_align")
-    _cuda.LAUNCHES["fused_align"] += 1
+    count(_cuda.COUNTER + "fused_align")
     return out
 
 

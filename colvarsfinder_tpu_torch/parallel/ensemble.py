@@ -52,7 +52,6 @@ import contextlib
 import copy
 import gc
 import inspect
-import time
 import types
 from collections import OrderedDict
 from typing import NamedTuple, Sequence
@@ -65,7 +64,7 @@ from torch.func import functional_call, vmap
 
 from .. import config as _cfg
 from ..config import default_dtype, numerics_key
-from ..logging_utils import losses_to_dataframe
+from ..logging_utils import losses_to_dataframe, span
 from ..ops import _cuda
 from .mesh import mesh_coords
 
@@ -86,7 +85,8 @@ __all__ = [
 
 #: wall-clock seconds of the last sweep or ensemble call's replayed epochs
 #: (all its epochs on the CPU or when run eagerly), up to and including
-#: the one host fetch of its results
+#: the one host fetch of its results: its ``cvf.sweep.run`` span (nan while
+#: tracing is off, :func:`..logging_utils.set_tracing`)
 last_run_seconds: float = 0.0
 
 #: captured sweeps kept across calls, so that a repeated sweep, or every
@@ -381,32 +381,38 @@ class _Replicas:
         """``epochs`` epochs; returns the host copies of the metric rows
         [epochs, R, nb, width], the parameters and the optimizer state
         (:meth:`_ReplicaOptimizer.state_tensors`), fetched in one
-        transfer, and sets :data:`last_run_seconds`. With ``mesh``, every
-        rank's replicas, gathered in one flat buffer and concatenated along
-        the replica axis in rank order: [epochs, W R, nb, width] etc."""
+        transfer. The epochs after a capturing one and the fetch are one
+        ``cvf.sweep.run`` span, whose seconds :data:`last_run_seconds`
+        takes. With ``mesh``, every rank's replicas, gathered in one flat
+        buffer and concatenated along the replica axis in rank order:
+        [epochs, W R, nb, width] etc."""
         global last_run_seconds
         # imported here: the task module imports this package (the mesh)
         from ..core.task import capture_epoch
 
         all_rows = torch.empty((epochs,) + tuple(self.rows.shape),
                                dtype=self.rows.dtype, device=self.device)
-        t0 = time.perf_counter()
-        for e in range(epochs):
-            if self.device.type != "cuda" or eager:
-                self.epoch()
-            elif self.graph is not None:
-                _cuda.replay(self.graph.graph, self.graph.launches)
-            else:
-                self.graph = capture_epoch(self.epoch, self.device, self._key)
-                t0 = time.perf_counter()
-            all_rows[e].copy_(self.rows)
-        tensors = [all_rows, *self.params, *self.opt.state_tensors()]
-        with torch.no_grad():  # step counts are exact in either dtype
-            flat = torch.cat([t.reshape(-1).to(all_rows.dtype)
-                              for t in tensors])
-            every = [flat] if mesh is None else _gather_replicas(mesh, flat)
-            every = torch.stack(every).cpu()  # one fetch
-        last_run_seconds = time.perf_counter() - t0
+        eager = self.device.type != "cuda" or eager
+        first = 0
+        if epochs and not eager and self.graph is None:
+            self.graph = capture_epoch(self.epoch, self.device, self._key)
+            all_rows[0].copy_(self.rows)
+            first = 1
+        with span("cvf.sweep.run", epochs=epochs - first) as timed:
+            for e in range(first, epochs):
+                if eager:
+                    self.epoch()
+                else:
+                    _cuda.replay(self.graph.graph, self.graph.launches)
+                all_rows[e].copy_(self.rows)
+            tensors = [all_rows, *self.params, *self.opt.state_tensors()]
+            with torch.no_grad():  # step counts are exact in either dtype
+                flat = torch.cat([t.reshape(-1).to(all_rows.dtype)
+                                  for t in tensors])
+                every = [flat] if mesh is None else _gather_replicas(mesh,
+                                                                     flat)
+                every = torch.stack(every).cpu()  # one fetch
+        last_run_seconds = timed.seconds
         out, off = [], 0
         for i, t in enumerate(tensors):
             parts = every[:, off:off + t.numel()].view(-1, *t.shape)
@@ -703,7 +709,8 @@ def train_hyperparameter_sweep(
         raise ValueError("chunk_size must be positive")
     width = min(cs, R)
     mine = slice(0, width) if mesh is None else _rank_share(mesh, width)
-    with _numerics(compute_dtype, bf16_style):
+    with span("cvf.sweep.call", replicas=R), \
+            _numerics(compute_dtype, bf16_style):
         out = []
         for lo in range(0, R, cs):
             hi = min(lo + cs, R)
@@ -716,36 +723,44 @@ def train_hyperparameter_sweep(
 
 def _sweep(task, grid: dict, models, eager: bool, mesh, mine: slice) -> list:
     """The R results of ``grid``; this rank trains the replicas ``mine``
-    of them (all of them without a mesh)."""
+    of them (all of them without a mesh). Stacking the replicas is one
+    ``cvf.sweep.load`` span, building the R results one
+    ``cvf.sweep.unpack`` span."""
     R = len(next(iter(grid.values())))
-    task._prepare_data()
-    hypers = _sweep_values(task, grid, R)
-    lrs = [float(v) for v in grid.get("learning_rate",
-                                      [task.learning_rate] * R)]
-    shapes = [(n, p.shape) for n, p in task.model.named_parameters()]
-    for m in models or ():
-        if [(n, p.shape) for n, p in m.named_parameters()] != shapes:
-            raise ValueError("models must share the task model's "
-                             "architecture")
-    local = range(R)[mine]
-    reps = _sweep_replicas(task, len(local))
-    reps.load((models or [task.model] * R)[mine],
-              {name: v[mine] for name, v in hypers.items()}, lrs[mine])
+    with span("cvf.sweep.load", replicas=R):
+        task._prepare_data()
+        hypers = _sweep_values(task, grid, R)
+        lrs = [float(v) for v in grid.get("learning_rate",
+                                          [task.learning_rate] * R)]
+        shapes = [(n, p.shape) for n, p in task.model.named_parameters()]
+        for m in models or ():
+            if [(n, p.shape) for n, p in m.named_parameters()] != shapes:
+                raise ValueError("models must share the task model's "
+                                 "architecture")
+        local = range(R)[mine]
+        reps = _sweep_replicas(task, len(local))
+        reps.load((models or [task.model] * R)[mine],
+                  {name: v[mine] for name, v in hypers.items()}, lrs[mine])
     rows, params, state = reps.run(task.num_epochs, eager, mesh)
-    template = task.optimizer.state_dict()
-    n = len(task.loss_names)
-    results = []
-    for r in range(R):
-        train_m, test_m, train_cm = _curves(task, rows[:, r], reps.nb_train)
-        width = train_cm.shape[-1]
-        results.append(SweepResult(
-            hyperparams={name: vals[r] for name, vals in grid.items()},
-            model={name: p[r].clone() for name, p in zip(reps.names, params)},
-            opt_state=reps.opt.replica_state_dict(state, r, lrs[r], template),
-            train_loss=train_m, test_loss=test_m,
-            loss_names=list(task.loss_names),
-            cvec=(train_cm[-1, -1, n:].astype(int) if width > n else None),
-        ))
+    with span("cvf.sweep.unpack", replicas=R):
+        template = task.optimizer.state_dict()
+        n = len(task.loss_names)
+        results = []
+        for r in range(R):
+            train_m, test_m, train_cm = _curves(task, rows[:, r],
+                                                reps.nb_train)
+            width = train_cm.shape[-1]
+            results.append(SweepResult(
+                hyperparams={name: vals[r] for name, vals in grid.items()},
+                model={name: p[r].clone()
+                       for name, p in zip(reps.names, params)},
+                opt_state=reps.opt.replica_state_dict(state, r, lrs[r],
+                                                      template),
+                train_loss=train_m, test_loss=test_m,
+                loss_names=list(task.loss_names),
+                cvec=(train_cm[-1, -1, n:].astype(int) if width > n
+                      else None),
+            ))
     return results
 
 

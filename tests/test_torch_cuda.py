@@ -598,6 +598,43 @@ def test_profile_dir_traces_the_replays(dev, tmp_path):
         assert name in text, name
 
 
+def test_spans_of_captured_epochs(dev, tmp_path):
+    """The recorder on the card: one ``cvf.graph.capture`` inside the first
+    epoch's ``cvf.epoch.issue``, every later epoch a replaying issue,
+    ``epoch_times`` the chunk spans'; a second call replays only, and a
+    ``profile_dir`` trace of it holds its spans as ``user_annotation``
+    events beside the device's kernels."""
+    import json
+
+    from colvarsfinder_tpu_torch import logging_utils
+
+    task = _graph_task(tmp_path / "run", "fused", 3)
+    logging_utils.reset_trace()
+    assert _train(task) == _schedule("fused", 3)
+    got = logging_utils.spans()
+    names = [s.name for s in got]
+    assert names.count("cvf.graph.capture") == 1
+    issues = [s for s in got if s.name == "cvf.epoch.issue"]
+    assert [s.attrs["replay"] for s in issues] == [False, True, True]
+    capture, = [s for s in got if s.name == "cvf.graph.capture"]
+    assert capture.parent == issues[0].id
+    chunks = [s for s in got if s.name == "cvf.epoch.chunk"]
+    assert task.epoch_times == [c.seconds for c in chunks]
+    logging_utils.reset_trace()
+    task.profile_dir = str(tmp_path / "prof")
+    assert _train(task, 2) == _schedule("fused", 2)
+    got = logging_utils.spans()
+    assert "cvf.graph.capture" not in [s.name for s in got]
+    assert all(s.profiled for s in got)
+    (trace,) = (tmp_path / "prof").glob("*.pt.trace.json")
+    events = json.loads(trace.read_text())["traceEvents"]
+    marked = sorted(e["name"] for e in events
+                    if e.get("cat") == "user_annotation"
+                    and e["name"].startswith("cvf."))
+    assert marked == sorted(s.name for s in got)
+    assert any(e.get("cat") == "kernel" for e in events)
+
+
 def test_a_host_sync_in_the_step_fails_the_capture(dev, tmp_path):
     """Eager epochs may sync with the host; a captured one cannot, and
     train() raises instead of carrying on eagerly."""
@@ -1024,6 +1061,32 @@ def test_k2_launches_per_sweep_epoch_do_not_depend_on_r(dev, tmp_path):
         per_epoch.append(reps.graph.launches["fused_align"])
         assert _cuda.launch_counts()["fused_align"] == 2 * nb * 3
     assert per_epoch == [2 * nb, 2 * nb]
+    ensemble.release_sweeps()
+
+
+def test_sweep_spans_leave_out_the_capture(dev, tmp_path):
+    """A captured sweep's ``cvf.sweep.run`` starts after its capture and
+    gives ``last_run_seconds``; a repeated sweep captures nothing."""
+    from colvarsfinder_tpu_torch import logging_utils
+    from colvarsfinder_tpu_torch.parallel import (
+        ensemble,
+        train_hyperparameter_sweep,
+    )
+
+    task = _sweep_task(tmp_path, "transfer")
+    ensemble.release_sweeps()
+    for captures in (1, 0):
+        logging_utils.reset_trace()
+        train_hyperparameter_sweep(task, _grid(4))
+        got = logging_utils.spans()
+        call, = [s for s in got if s.name == "cvf.sweep.call"]
+        run, = [s for s in got if s.name == "cvf.sweep.run"]
+        caps = [s for s in got if s.name == "cvf.graph.capture"]
+        assert len(caps) == captures
+        assert all(c.end_ns <= run.start_ns and c.call == call.id
+                   for c in caps)
+        assert run.attrs == {"epochs": task.num_epochs - captures}
+        assert ensemble.last_run_seconds == run.seconds
     ensemble.release_sweeps()
 
 
