@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..config import bf16_style, compute_dtype, default_dtype
+from ..logging_utils import count
 
 __all__ = [
     "ACTIVATIONS",
@@ -33,6 +34,7 @@ __all__ = [
     "mlp_init",
     "params_from_numpy",
     "resolve_activation",
+    "split_count",
     "stacked_mlp_apply",
     "stacked_mlp_init",
 ]
@@ -191,11 +193,101 @@ def stacked_mlp_init(
     )
 
 
+#: fewest rows a chunk of a split layer product keeps
+SPLIT_MIN_ROWS = 256
+#: thread blocks per SM that a split layer product's weight gradient aims
+#: for: each chunk's output is one cuBLAS tile, so one block
+SPLIT_BLOCKS_PER_SM = 4
+
+
+def split_count(device_type: str, records_grad: bool, rows: int,
+                batch: int, result_dtype: torch.dtype, sm_count: int) -> int:
+    """The number of chunks of the batch axis that a stacked layer product
+    of :func:`stacked_mlp_apply` is split into; 1 keeps the whole product.
+
+    A layer's weight gradient reduces over the ``rows`` of the batch, and
+    its output is ``d_out x d_in``, at most 30 x 20 here. cuBLAS covers an
+    output that small with one 32 x 32 tile, one thread block per batch
+    entry, and does not split the reduction: a product over ``batch`` =
+    k heads (R k in a sweep) runs as ``batch`` blocks on the card, each
+    looping over all the rows. Split into S chunks, the product runs as
+    ``batch * S`` blocks over ``rows / S`` rows each, and a sum over S.
+
+    The split is taken on the card (``device_type`` 'cuda') where a weight
+    gradient is recorded (``records_grad``) and the product's result is
+    float32: bfloat16 partial products would be rounded before their sum,
+    and float64 runs are references. S aims for ``SPLIT_BLOCKS_PER_SM``
+    blocks on each of the ``sm_count`` SMs and keeps ``SPLIT_MIN_ROWS``
+    rows a chunk."""
+    if (device_type != "cuda" or not records_grad
+            or result_dtype != torch.float32):
+        return 1
+    want = -(-SPLIT_BLOCKS_PER_SM * sm_count // batch)
+    return max(1, min(want, rows // SPLIT_MIN_ROWS))
+
+
+def _unwrapped(t: torch.Tensor) -> tuple:
+    """``(n, plain)``: how many replicas ``torch.func.vmap`` maps ``t``
+    over (1 outside any map), and the plain tensor under the transforms'
+    wrappers, which says whether autograd records it."""
+    functorch = torch._C._functorch
+    n = 1
+    while functorch.is_functorch_wrapped_tensor(t):
+        inner = functorch.get_unwrapped(t)
+        if functorch.is_batchedtensor(t):
+            n *= inner.shape[functorch.maybe_get_bdim(t)]
+        t = inner
+    return n, t
+
+
+def _heads_split(x: torch.Tensor, W: torch.Tensor, style) -> int:
+    """:func:`split_count` for the stacked heads' products of input ``x``
+    [B, d_in] under first-layer weights ``W`` [k, d_out, d_in]."""
+    if not x.is_cuda:
+        return 1
+    replicas, plain = _unwrapped(W)
+    if style == "pure":
+        result = torch.bfloat16
+    else:
+        result = x.dtype if style is None else W.dtype
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return split_count("cuda", torch.is_grad_enabled() and plain.requires_grad,
+                       x.shape[0], replicas * W.shape[0], result, sms)
+
+
+def _layer_product(h, W, b, splits: int) -> torch.Tensor:
+    """``h @ W^T + b`` per head: ``[k, B, i] x [k, o, i] -> [k, B, o]``,
+    one batched product; with ``splits`` > 1 (B a multiple of it) the
+    product runs over ``k * splits`` chunks of ``B / splits`` rows, the
+    weights and bias broadcast over the chunks, so autograd reduces every
+    derivative over B chunk by chunk and then sums the chunks in a fixed
+    order."""
+    if splits == 1:
+        return torch.baddbmm(b[:, None, :], h, W.transpose(1, 2))
+    k, B, d_in = h.shape
+    d_out = W.shape[1]
+    Wt = W.transpose(1, 2)[:, None].expand(k, splits, d_in, d_out)
+    bias = b[:, None, None, :].expand(k, splits, 1, d_out)
+    out = torch.baddbmm(bias.reshape(k * splits, 1, d_out),
+                        h.reshape(k * splits, B // splits, d_in),
+                        Wt.reshape(k * splits, d_in, d_out))
+    return out.view(k, B, d_out)
+
+
 def stacked_mlp_apply(
     weights: Sequence[torch.Tensor], biases: Sequence[torch.Tensor],
     x: torch.Tensor, activation: str,
 ) -> torch.Tensor:
     """Apply k stacked MLPs to a shared input batch.
+
+    Each layer is one batched product over the heads. On the card, where
+    a weight gradient is recorded in float32, each product is split along
+    the batch axis (:func:`split_count`): the weight gradients reduce over
+    the whole batch, and cuBLAS would run each as a single 32 x 32 tile per
+    head over all of the rows. A batch that is no multiple of the chunks
+    is padded with zero rows, which add exact zeros to every gradient, and
+    their outputs are dropped. The recorder counts the layer products in
+    ``cvf.heads.split`` and ``cvf.heads.whole``.
 
     Args:
         weights / biases: per layer ``[k, d_out, d_in]`` / ``[k, d_out]``.
@@ -205,28 +297,42 @@ def stacked_mlp_apply(
         ``[batch, k * d_out_last]`` with per-head blocks contiguous, as
         ``colvarsfinder_tpu/models/module.py:207-270`` lays them out.
     """
-    act = ACTIVATIONS[activation]
     squeeze = x.dim() == 1
     if squeeze:
         x = x[None]
     style = _mixed_style(x)
+    splits = _heads_split(x, weights[0], style)
+    count("cvf.heads.split" if splits > 1 else "cvf.heads.whole",
+          len(weights))
+    h = _stacked_apply(weights, biases, x, activation, style, splits)
+    return h[0] if squeeze else h
+
+
+def _stacked_apply(weights, biases, x, activation: str, style,
+                   splits: int) -> torch.Tensor:
+    """:func:`stacked_mlp_apply` of ``x`` [B, d_in] with each layer product
+    split into ``splits`` chunks of the batch axis."""
+    act = ACTIVATIONS[activation]
+    rows = x.shape[0]
     k = weights[0].shape[0]
     h = x if style is None else x.to(torch.bfloat16)
-    h = h.unsqueeze(0).expand(k, *x.shape)
+    pad = -rows % splits
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+    h = h.unsqueeze(0).expand(k, *h.shape)
     n = len(weights)
     for i, (W, b) in enumerate(zip(weights, biases)):
         if style is not None:
             h, W, b = _mixed_operands(h, W, b, style)
-        # [k, b, i] x [k, i, o] -> [k, b, o]: one batched product per layer
-        h = torch.baddbmm(b[:, None, :], h, W.transpose(1, 2))
+        h = _layer_product(h, W, b, splits)
         if i < n - 1:
             h = act(h)
             if style not in (None, "pure"):
                 h = h.to(torch.bfloat16)  # the stored activation
-    h = h.transpose(0, 1).reshape(x.shape[0], -1)
+    h = h[:, :rows].transpose(0, 1).reshape(rows, -1)
     if style is not None:
         h = h.to(x.dtype)
-    return h[0] if squeeze else h
+    return h
 
 
 class _Linear(nn.Module):

@@ -14,7 +14,9 @@ Each wrapper counts its launches on the host, in the recorder's counter
 :func:`launch_counts` and :data:`LAUNCHES` read them. A CUDA graph replay
 runs no Python, so a capture is taken inside :func:`capture_launches`,
 which records what the graph holds and takes it back out of the counts,
-and every replay goes through :func:`replay`, which adds it.
+and every replay goes through :func:`replay`, which adds it. The same
+holds for the recorder's other counters, such as the stacked heads' split
+and whole layer products.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -126,25 +128,33 @@ def capture_launches():
     """Around a CUDA graph capture: yields a dict that is filled, on exit,
     with the launches each wrapper counted inside (the launches the graph
     holds), and takes them back out of :data:`LAUNCHES`, since a capture
-    runs nothing."""
-    before = launch_counts()
+    runs nothing. Every other counter of the recorder that moved inside
+    (the stacked heads' ``cvf.heads.split`` and ``cvf.heads.whole``) is
+    taken back out the same way and held under its full name."""
+    before = counters()
     held: dict = {}
     try:
         yield held
     finally:
-        after = launch_counts()
+        after = counters()
         for name in KERNELS:
-            held[name] = after[name] - before[name]
-            LAUNCHES[name] = before[name]
+            n = after.get(COUNTER + name, 0) - before.get(COUNTER + name, 0)
+            held[name] = n
+            count(COUNTER + name, -n)
+        for name, v in after.items():
+            n = v - before.get(name, 0)
+            if n and not name.startswith(COUNTER):
+                held[name] = n
+                count(name, -n)
 
 
 def replay(graph, launches: dict) -> None:
-    """Replay a captured graph and count the kernel launches it holds
-    (``launches``, from :func:`capture_launches`)."""
+    """Replay a captured graph and count the kernel launches and the other
+    counts it holds (``launches``, from :func:`capture_launches`)."""
     graph.replay()
     for name, n in launches.items():
         if n:
-            count(COUNTER + name, n)
+            count(COUNTER + name if name in KERNELS else name, n)
 
 
 def _nvcc() -> str:

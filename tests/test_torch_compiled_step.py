@@ -107,6 +107,33 @@ def test_capture_takes_back_its_launches_and_each_replay_adds_them():
     _cuda.reset_launch_counts()
 
 
+def test_a_capture_carries_the_heads_counts_into_each_replay():
+    """Counters other than the launches (the stacked heads' split and whole
+    layer products, counted in Python while a step is captured) are held
+    under their full names, taken back out, and added by every replay."""
+    from colvarsfinder_tpu_torch import logging_utils
+
+    logging_utils.reset_trace()
+    logging_utils.count("cvf.heads.whole", 4)
+    with _cuda.capture_launches() as held:
+        logging_utils.count("cvf.heads.split", 8)
+        logging_utils.count("cvf.heads.whole", 4)
+        _cuda.LAUNCHES["fused_align"] += 1
+    assert held == {"kabsch_qcp": 0, "fused_align": 1, "stats_fwd": 0,
+                    "stats_bwd": 0, "cvf.heads.split": 8,
+                    "cvf.heads.whole": 4}
+    got = logging_utils.counters()
+    assert got["cvf.heads.split"] == 0 and got["cvf.heads.whole"] == 4
+    assert sum(_cuda.launch_counts().values()) == 0
+    graph = _FakeGraph()
+    for _ in range(3):
+        _cuda.replay(graph, held)
+    got = logging_utils.counters()
+    assert got["cvf.heads.split"] == 24 and got["cvf.heads.whole"] == 16
+    assert _cuda.launch_counts()["fused_align"] == 3
+    logging_utils.reset_trace()
+
+
 def test_a_failed_capture_counts_nothing():
     _cuda.reset_launch_counts()
     with pytest.raises(RuntimeError, match="capturing"):

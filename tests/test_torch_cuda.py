@@ -10,7 +10,9 @@ and captured streamed steps against eager ones, launches per streamed step,
 pinned host buffers, the copies on their own stream, K1 and K2 streamed),
 and the data mesh at one rank of an NCCL group (captured meshed epochs and
 streamed steps against eager and unmeshed ones, NCCL's kernel in each
-replayed step, a meshed sweep), and the samplers (each report block a
+replayed step, a meshed sweep), the stacked heads' products split along
+the batch (replays counting them, bit for bit equal to eager epochs), and
+the samplers (each report block a
 captured graph bit for bit equal to eager blocks, one replay per block,
 metadynamics through K2 against the quaternion layer, a failed capture).
 Every test here needs an NVIDIA card and ``nvcc``: it
@@ -513,7 +515,7 @@ def test_captured_epochs_equal_eager_epochs(dev, tmp_path, kind):
         if before is not None:
             assert graph._graph is before
         runs.append((_rows(graph), _rows(eager)))
-    assert graph._graph.launches == {
+    assert {name: graph._graph.launches[name] for name in _cuda.KERNELS} == {
         name: n // 5 for name, n in _schedule(kind, 5).items()}
     # each replay ran the step on new parameters: no epoch repeats the last
     rows = runs[0][0]
@@ -986,7 +988,7 @@ def test_exported_cv_programs_run_their_kernel(dev, tmp_path, kind):
 
 # ---------------------------------------------------------------------------
 # replica sweeps (parallel/ensemble.py)
-def _sweep_task(tmp_path, kind, epochs=3):
+def _sweep_task(tmp_path, kind, epochs=3, batch_size=200):
     rng = np.random.default_rng(11)
     ref = rng.standard_normal((6, 3)).astype(np.float32)
     x = (ref[None] + 0.3 * rng.standard_normal((1200, 6, 3))).astype(
@@ -1007,7 +1009,7 @@ def _sweep_task(tmp_path, kind, epochs=3):
         WeightedTrajectory(trajectory=x, dt=0.01, verbose=False), pp,
         EigenFunctions([18, 10, 1], 2, seed=0), str(tmp_path), alpha=10.0,
         eig_weights=[1.0, 0.5], lag_tau=0.02 if kind == "transfer" else 0.0,
-        k=2, learning_rate=0.005, batch_size=200, num_epochs=epochs,
+        k=2, learning_rate=0.005, batch_size=batch_size, num_epochs=epochs,
         test_ratio=0.2, verbose=False, tensorboard=False,
         save_model_every_step=0, gram_pp=None if kind == "transfer" else True)
 
@@ -1088,6 +1090,63 @@ def test_sweep_spans_leave_out_the_capture(dev, tmp_path):
         assert run.attrs == {"epochs": task.num_epochs - captures}
         assert ensemble.last_run_seconds == run.seconds
     ensemble.release_sweeps()
+
+
+@pytest.mark.parametrize("kind", ["gram", "plain", "sweep", "fused"])
+def test_split_heads_replays_count_and_equal_eager_epochs(dev, tmp_path,
+                                                          kind):
+    """The stacked heads' layer products split along the batch axis on the
+    card (batches of 2,000 rows in 7 chunks, padded; the sweep's 600 rows
+    in 2): each replay of a captured epoch counts the split products the
+    graph holds in ``cvf.heads.split``, and the replays equal eager epochs
+    bit for bit. The fused step runs no product of the heads."""
+    from colvarsfinder_tpu_torch import logging_utils
+    from colvarsfinder_tpu_torch.parallel import (
+        ensemble,
+        train_hyperparameter_sweep,
+    )
+
+    if kind == "sweep":
+        task = _sweep_task(tmp_path, "transfer", batch_size=600)
+        ensemble.release_sweeps()
+        train_hyperparameter_sweep(task, _grid(4))  # captures
+        logging_utils.reset_trace()
+        got = train_hyperparameter_sweep(task, _grid(4))  # replays only
+        counted = logging_utils.counters()
+        held = next(reversed(ensemble._SWEEPS.values())).graph.launches
+        want = train_hyperparameter_sweep(task, _grid(4), _eager=True)
+        for a, b in zip(got, want):
+            assert np.array_equal(a.train_loss, b.train_loss)
+            assert np.array_equal(a.test_loss, b.test_loss)
+            assert all(torch.equal(a.model[n], b.model[n]) for n in a.model)
+        ensemble.release_sweeps()
+        replays = task.num_epochs
+    else:
+        def make(path):
+            if kind == "gram":
+                return _dirichlet_task(path, "gen_gram", 3)
+            return _graph_task(path, kind, 3)
+
+        graph, eager = make(tmp_path / "graph"), make(tmp_path / "eager")
+        eager._eager_on_card = True
+        _train(graph)
+        _train(eager)
+        logging_utils.reset_trace()
+        replays = 2
+        _train(graph, replays)  # replays only
+        counted = logging_utils.counters()
+        held = graph._graph.launches
+        _train(eager, replays)
+        np.testing.assert_array_equal(_rows(graph), _rows(eager))
+        for a, b in zip(graph.model.parameters(), eager.model.parameters()):
+            assert torch.equal(a, b)
+    split = held.get("cvf.heads.split", 0)
+    assert counted.get("cvf.heads.split", 0) == replays * split
+    if kind == "fused":
+        assert split == 0 and "cvf.heads.whole" not in held
+    else:
+        assert split > 0
+    logging_utils.reset_trace()
 
 
 def test_bf16_sweep_keeps_float32_parameters(dev, tmp_path):
