@@ -12,16 +12,17 @@ Phases (each raises on failure; nothing is caught):
 
 1. the card's name and power limit, the torch and CUDA versions, and the
    build of the CUDA kernels from ``colvarsfinder_tpu_torch/csrc``;
-2. kernels K1-K4 against their plain PyTorch versions on the card, at the
+2. kernels K1-K5 against their plain PyTorch versions on the card, at the
    main path's shapes (B = 20,000 frames of 10 atoms, dims [30,20,20,20,1],
-   k = 2), at a ragged B = 37 and at one sample past a multiple of K3's and
-   K4's tiles (there with a seeded cotangent, see EDGE_B; it is one frame
-   past a multiple of K1's tile too); K4 takes the head outputs Y that K3
-   returns, Y is held against the plain head outputs, and K3/K4 must repeat
-   bit for bit; K2 also on frames of the dipeptide's 22 atoms with 10
-   unsorted align indices; K1 also on a view 4 bytes into its buffer, a zero
-   frame (exactly the identity) and frames with two nearly equal singular
-   values;
+   k = 2; K5 on frames of CLN025's 93 atoms and all 4,278 pairs of them,
+   PAIR_ATOMS), at a ragged B = 37 and at one sample past a multiple of
+   K3's and K4's tiles (there with a seeded cotangent, see EDGE_B; it is
+   one frame past a multiple of K1's tile too); K4 takes the head outputs Y
+   that K3 returns, Y is held against the plain head outputs, and K3/K4
+   must repeat bit for bit; K2 also on frames of the dipeptide's 22 atoms
+   with 10 unsorted align indices; K1 also on a view 4 bytes into its
+   buffer, a zero frame (exactly the identity) and frames with two nearly
+   equal singular values;
 3. each kernel's device time (CUDA events, median of 21 batches of
    back-to-back calls queued behind a device sleep) beside its bound
    (the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s) and
@@ -236,6 +237,8 @@ K1_BEFORE_US = 5.25
 ALIGN_WEIGHTS = np.random.default_rng(1).uniform(1.0, 16.0, N_ATOMS)
 # K2 on the dipeptide's atoms (examples/dipeptide/top.gro)
 DIPEPTIDE_ATOMS, DIPEPTIDE_ALIGN = 22, 10
+# K5 on the CLN025 cell's frames: 93 heavy atoms, all pairs
+PAIR_ATOMS = 93
 
 # H100 SXM peaks (NVIDIA data sheet): HBM rate, f32 outside tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -247,6 +250,7 @@ TOL = {
     "fused_align": dict(atol=2e-4, rtol=0.0),
     "stats_fwd": dict(atol=1e-4, rtol=5e-6),
     "stats_bwd": dict(atol=1e-3, rtol=2e-3),
+    "pair_distances": dict(atol=1e-6, rtol=3e-7),
 }
 # K3's head outputs against the plain heads: f32 FMA chains against
 # cuBLAS (ten times the CPU tests' model-forward bar)
@@ -433,6 +437,9 @@ KERNELS = {
                   "colvarsfinder_tpu/ops/fused_eigen.py:146"),
     "stats_bwd": ("colvarsfinder_tpu_torch/csrc/fused_eigen.cu",
                   "colvarsfinder_tpu/ops/fused_eigen.py:230"),
+    # no TPU kernel: there each bond is its own XLA computation
+    "pair_distances": ("colvarsfinder_tpu_torch/csrc/pair_distances.cu",
+                       "colvarsfinder_tpu/ops/features.py:310"),
 }
 
 
@@ -589,6 +596,7 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
         transfer_stats_reference,
         unflatten_grads,
     )
+    from colvarsfinder_tpu_torch.ops.features import pair_distances
     from colvarsfinder_tpu_torch.ops.kabsch_cuda import (
         KABSCH_TILE,
         AlignShape,
@@ -598,8 +606,16 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
         kabsch_qcp_launch,
         kabsch_resident_blocks,
     )
+    from colvarsfinder_tpu_torch.ops.pair_cuda import pair_distances_launch
 
     ref = torch.from_numpy(ref_np - ref_np.mean(0)).to(dev)
+    # K5's frames: a seeded structure of PAIR_ATOMS atoms, perturbed
+    gen = torch.Generator().manual_seed(PAIR_ATOMS)
+    x_pairs = (torch.randn(PAIR_ATOMS, 3, generator=gen) * 1.5
+               + 0.3 * torch.randn(BATCH, PAIR_ATOMS, 3, generator=gen)
+               ).to(dev)
+    pairs = torch.triu_indices(PAIR_ATOMS, PAIR_ATOMS, offset=1,
+                               device=dev).T.to(torch.int32).contiguous()
     idx64 = torch.arange(N_ATOMS, device=dev)
     idx32 = idx64.to(torch.int32)
     model = cvf.EigenFunctions(DIMS, K, seed=0, device=dev)
@@ -618,6 +634,7 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
         Xl = traj[LAG:LAG + B].to(dev)
         w = weights[:B].to(dev)
         wl = weights[LAG:LAG + B].to(dev)
+        Xp = x_pairs[:B]
         sel_c = X - X.mean(1, keepdim=True)
         C = torch.einsum("bmi,mj->bij", sel_c, ref).contiguous()
         F = align_frames(X, ref, idx64).reshape(B, -1).contiguous()
@@ -672,6 +689,8 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
                           .detach()),
             "stats_bwd": (lambda: k4_unflat(k4_kernel()),
                           lambda: list(k4_plain())),
+            "pair_distances": (lambda: pair_distances_launch(Xp, pairs),
+                               lambda: pair_distances(Xp, pairs)),
         }
         for name, (kern, plain) in cases.items():
             got, want = kern(), plain()
@@ -716,6 +735,10 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
             "stats_bwd": (2 * B * (DIMS[0] + 1) * 4 + 2 * K * B * 4
                           + (2 * _n_params(DIMS, K) + n_stats) * 4,
                           2 * 2 * B * K * (2 * fma + fma_deep)),
+            # frames in once, distances out once (the pair list stays in
+            # L2); 3 subtractions, 3 products, 2 sums and a root a pair
+            "pair_distances": (4 * B * (3 * PAIR_ATOMS + len(pairs)),
+                               9 * B * len(pairs)),
         }
         log(f"  (tanh evaluations per K3 call: {2 * B * K * hid}; not in the "
             "flop count)")
@@ -883,7 +906,7 @@ def phase_training(ref, traj_np, w_np, cvf):
                                 ("k1", "kabsch_qcp"), ("k1 plain", None)):
         r = runs[label]
         e = r["epochs"]
-        want = {"kabsch_qcp": 0, "fused_align": 0,
+        want = {**dict.fromkeys(r["counts"], 0),
                 "stats_fwd": e * (nb_train + nb_test),
                 "stats_bwd": e * nb_train}
         if align_kernel:
@@ -3276,7 +3299,7 @@ def phase_md_input(card, cvf):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = _cuda.launch_counts()
-            want = {"kabsch_qcp": 0,
+            want = {**dict.fromkeys(counts, 0),
                     "fused_align": 2 * MD_EPOCHS * (nb_train + nb_test),
                     "stats_fwd": MD_EPOCHS * (nb_train + nb_test),
                     "stats_bwd": MD_EPOCHS * nb_train}

@@ -195,34 +195,42 @@ def stacked_mlp_init(
 
 #: fewest rows a chunk of a split layer product keeps
 SPLIT_MIN_ROWS = 256
-#: thread blocks per SM that a split layer product's weight gradient aims
-#: for: each chunk's output is one cuBLAS tile, so one block
+#: thread blocks per SM that a layer product's weight gradient aims for
 SPLIT_BLOCKS_PER_SM = 4
+#: side of the output tile, one thread block each, in which cuBLAS covers
+#: the weight gradient of a small layer
+SPLIT_TILE = 32
 
 
 def split_count(device_type: str, records_grad: bool, rows: int,
-                batch: int, result_dtype: torch.dtype, sm_count: int) -> int:
+                batch: int, result_dtype: torch.dtype, sm_count: int,
+                d_out: int, d_in: int) -> int:
     """The number of chunks of the batch axis that a stacked layer product
     of :func:`stacked_mlp_apply` is split into; 1 keeps the whole product.
 
     A layer's weight gradient reduces over the ``rows`` of the batch, and
-    its output is ``d_out x d_in``, at most 30 x 20 here. cuBLAS covers an
-    output that small with one 32 x 32 tile, one thread block per batch
-    entry, and does not split the reduction: a product over ``batch`` =
-    k heads (R k in a sweep) runs as ``batch`` blocks on the card, each
-    looping over all the rows. Split into S chunks, the product runs as
-    ``batch * S`` blocks over ``rows / S`` rows each, and a sum over S.
+    its output is ``d_out x d_in``. cuBLAS covers that output in 32 x 32
+    tiles, one thread block each, per batch entry, and does not split the
+    reduction: a product over ``batch`` = k heads (R k in a sweep) runs as
+    ``batch`` times the output's tiles blocks on the card, each looping
+    over all the rows. A small layer (the dipeptide's, at most 30 x 20: one
+    tile) leaves most SMs idle; a wide one (256 x 4,278: 1,072 tiles a
+    head) fills the card whole. Split into S chunks, the product runs as S
+    times as many blocks over ``rows / S`` rows each, and a sum over S;
+    the weights are copied once per chunk.
 
     The split is taken on the card (``device_type`` 'cuda') where a weight
     gradient is recorded (``records_grad``) and the product's result is
     float32: bfloat16 partial products would be rounded before their sum,
-    and float64 runs are references. S aims for ``SPLIT_BLOCKS_PER_SM``
-    blocks on each of the ``sm_count`` SMs and keeps ``SPLIT_MIN_ROWS``
-    rows a chunk."""
+    and float64 runs are references. S is the least that gives
+    ``SPLIT_BLOCKS_PER_SM`` blocks on each of the ``sm_count`` SMs, 1 where
+    the whole product already does, and keeps ``SPLIT_MIN_ROWS`` rows a
+    chunk."""
     if (device_type != "cuda" or not records_grad
             or result_dtype != torch.float32):
         return 1
-    want = -(-SPLIT_BLOCKS_PER_SM * sm_count // batch)
+    tiles = batch * -(-d_out // SPLIT_TILE) * -(-d_in // SPLIT_TILE)
+    want = -(-SPLIT_BLOCKS_PER_SM * sm_count // tiles)
     return max(1, min(want, rows // SPLIT_MIN_ROWS))
 
 
@@ -240,19 +248,23 @@ def _unwrapped(t: torch.Tensor) -> tuple:
     return n, t
 
 
-def _heads_split(x: torch.Tensor, W: torch.Tensor, style) -> int:
-    """:func:`split_count` for the stacked heads' products of input ``x``
-    [B, d_in] under first-layer weights ``W`` [k, d_out, d_in]."""
+def _heads_splits(x: torch.Tensor, weights, style) -> tuple:
+    """:func:`split_count` of each layer product of the stacked heads, for
+    an input ``x`` [B, d_in] of the layers ``weights`` ([k, d_out, d_in]
+    each)."""
+    n = len(weights)
     if not x.is_cuda:
-        return 1
-    replicas, plain = _unwrapped(W)
+        return (1,) * n
+    replicas, plain = _unwrapped(weights[0])
     if style == "pure":
         result = torch.bfloat16
     else:
-        result = x.dtype if style is None else W.dtype
+        result = x.dtype if style is None else weights[0].dtype
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return split_count("cuda", torch.is_grad_enabled() and plain.requires_grad,
-                       x.shape[0], replicas * W.shape[0], result, sms)
+    grad = torch.is_grad_enabled() and plain.requires_grad
+    return tuple(split_count("cuda", grad, x.shape[0], replicas * W.shape[0],
+                             result, sms, W.shape[1], W.shape[2])
+                 for W in weights)
 
 
 def _layer_product(h, W, b, splits: int) -> torch.Tensor:
@@ -286,8 +298,10 @@ def stacked_mlp_apply(
     the whole batch, and cuBLAS would run each as a single 32 x 32 tile per
     head over all of the rows. A batch that is no multiple of the chunks
     is padded with zero rows, which add exact zeros to every gradient, and
-    their outputs are dropped. The recorder counts the layer products in
-    ``cvf.heads.split`` and ``cvf.heads.whole``.
+    their outputs are dropped. Each layer takes its own number of chunks,
+    so a wide first layer runs whole before its narrow successors split.
+    The recorder counts the layer products in ``cvf.heads.split`` and
+    ``cvf.heads.whole``.
 
     Args:
         weights / biases: per layer ``[k, d_out, d_in]`` / ``[k, d_out]``.
@@ -301,30 +315,39 @@ def stacked_mlp_apply(
     if squeeze:
         x = x[None]
     style = _mixed_style(x)
-    splits = _heads_split(x, weights[0], style)
-    count("cvf.heads.split" if splits > 1 else "cvf.heads.whole",
-          len(weights))
+    splits = _heads_splits(x, weights, style)
+    n_split = sum(s > 1 for s in splits)
+    if n_split:
+        count("cvf.heads.split", n_split)
+    if n_split < len(splits):
+        count("cvf.heads.whole", len(splits) - n_split)
     h = _stacked_apply(weights, biases, x, activation, style, splits)
     return h[0] if squeeze else h
 
 
 def _stacked_apply(weights, biases, x, activation: str, style,
-                   splits: int) -> torch.Tensor:
-    """:func:`stacked_mlp_apply` of ``x`` [B, d_in] with each layer product
-    split into ``splits`` chunks of the batch axis."""
+                   splits: tuple) -> torch.Tensor:
+    """:func:`stacked_mlp_apply` of ``x`` [B, d_in] with layer ``i``'s
+    product split into ``splits[i]`` chunks of the batch axis. The rows are
+    padded with zeros to a multiple of a layer's chunks where they are not
+    one already (the input for the first layer, before it is broadcast over
+    the heads)."""
     act = ACTIVATIONS[activation]
     rows = x.shape[0]
     k = weights[0].shape[0]
+    n = len(weights)
     h = x if style is None else x.to(torch.bfloat16)
-    pad = -rows % splits
+    pad = -rows % splits[0]
     if pad:
         h = torch.nn.functional.pad(h, (0, 0, 0, pad))
     h = h.unsqueeze(0).expand(k, *h.shape)
-    n = len(weights)
     for i, (W, b) in enumerate(zip(weights, biases)):
         if style is not None:
             h, W, b = _mixed_operands(h, W, b, style)
-        h = _layer_product(h, W, b, splits)
+        pad = -h.shape[1] % splits[i]
+        if pad:
+            h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        h = _layer_product(h, W, b, splits[i])
         if i < n - 1:
             h = act(h)
             if style not in (None, "pure"):

@@ -1,4 +1,5 @@
-"""Preprocessing layers, alignment and the fused-step statistics."""
+"""Preprocessing layers, alignment, grouped pair distances and the
+fused-step statistics."""
 
 from .alignment import (
     AlignmentLayer,
@@ -20,6 +21,7 @@ from .features import (
     dihedral_angle,
     dihedral_cos_sin,
     minimum_image,
+    pair_distances,
     switching_rational,
 )
 from .builders import backbone_dihedrals, heavy_atom_contacts
@@ -35,6 +37,7 @@ from .kabsch_cuda import (
     align_frames_fused_cuda,
     kabsch_rotations_cuda,
 )
+from .pair_cuda import pair_distances_cuda
 
 __all__ = [
     "AlignmentLayer",
@@ -60,6 +63,8 @@ __all__ = [
     "kabsch_rotations_svd",
     "heavy_atom_contacts",
     "minimum_image",
+    "pair_distances",
+    "pair_distances_cuda",
     "params_t_of",
     "stats_layout",
     "switching_rational",

@@ -16,7 +16,7 @@ runs no Python, so a capture is taken inside :func:`capture_launches`,
 which records what the graph holds and takes it back out of the counts,
 and every replay goes through :func:`replay`, which adds it. The same
 holds for the recorder's other counters, such as the stacked heads' split
-and whole layer products.
+and whole layer products and the feature layer's pair distances.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -54,7 +54,7 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cvf_torch_kernels"
-SOURCES = ("kabsch", "fused_eigen")
+SOURCES = ("kabsch", "fused_eigen", "pair_distances")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -76,11 +76,16 @@ _SIGNATURES = {
         "cvf_stats_fwd_occupancy": (_I, _I, _P),
         "cvf_stats_bwd_occupancy": (_I, _I, _P),
     },
+    "pair_distances": {
+        "cvf_pair_distances": (_P, _P, _P, _I, _I, _I, _I, _P),
+        "cvf_pair_distances_max_atoms": (_I, _P),
+    },
 }
 
 #: the kernel wrappers, each counting its launches in the recorder's
 #: counter ``COUNTER + name``, where it launches its kernel and nowhere else
-KERNELS = ("kabsch_qcp", "fused_align", "stats_fwd", "stats_bwd")
+KERNELS = ("kabsch_qcp", "fused_align", "stats_fwd", "stats_bwd",
+           "pair_distances")
 COUNTER = "cvf.kernel.launches."
 
 
@@ -129,8 +134,10 @@ def capture_launches():
     with the launches each wrapper counted inside (the launches the graph
     holds), and takes them back out of :data:`LAUNCHES`, since a capture
     runs nothing. Every other counter of the recorder that moved inside
-    (the stacked heads' ``cvf.heads.split`` and ``cvf.heads.whole``) is
-    taken back out the same way and held under its full name."""
+    (the stacked heads' ``cvf.heads.split`` and ``cvf.heads.whole``, the
+    feature layer's ``cvf.features.pairs_grouped`` and
+    ``cvf.features.pairs_single``) is taken back out the same way and held
+    under its full name."""
     before = counters()
     held: dict = {}
     try:

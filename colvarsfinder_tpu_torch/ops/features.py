@@ -18,6 +18,16 @@ type                output dim      value
 ``contact``         1               rational switching s(|r_ab|)
 ``coordination``    1               sum of s(|r_ab|) over a pair list
 ==================  ==============  =======================================
+
+A run of two or more consecutive ``bond`` features is evaluated as one
+pair list (:func:`pair_distances`): one int32 ``[P, 2]`` index buffer,
+which the plain version and the kernel both read, and one gathered
+evaluation for the run, in place of one of each per distance. On a CUDA
+tensor without a box that evaluation is kernel K5
+(:func:`.pair_cuda.pair_distances_cuda`). The recorder counts the
+distances in ``cvf.features.pairs_grouped`` (B P per grouped evaluation)
+and ``cvf.features.pairs_single`` (B per lone ``bond`` evaluated on its
+own).
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 from torch import nn
+
+from ..logging_utils import count
 
 __all__ = [
     "Feature",
@@ -43,6 +55,7 @@ __all__ = [
     "dihedral_angle",
     "dihedral_cos_sin",
     "minimum_image",
+    "pair_distances",
     "switching_rational",
 ]
 
@@ -234,6 +247,34 @@ def _pair_distance(ra, rb, box):
     return torch.sqrt((d * d).sum(dim=-1))
 
 
+def pair_distances(x: torch.Tensor, pairs: torch.Tensor,
+                   box=None) -> torch.Tensor:
+    """|r_j - r_i| [B, P] of the frames ``x`` [B, N, 3] for every row (i, j)
+    of ``pairs`` [P, 2] (int32 or int64), with the minimum image where
+    ``box`` is given: the plain grouped evaluation, the CPU route and the
+    reference of kernel K5."""
+    return _pair_distance(x.index_select(1, pairs[:, 0]),
+                          x.index_select(1, pairs[:, 1]), box)
+
+
+def _count_distances(name: str, n) -> None:
+    """Add ``n`` distances to the recorder's counter ``name``; a symbolic
+    trace (``torch.export``) evaluates nothing, and counts nothing."""
+    if isinstance(n, int):
+        count(name, n)
+
+
+def _grouped_distances(x, pairs, max_index: int, box):
+    """:func:`pair_distances`, through kernel K5 on a CUDA tensor without
+    a box; with a box (the kernel has no minimum image) or on the CPU, the
+    plain grouped evaluation."""
+    if box is None and x.is_cuda:
+        from .pair_cuda import pair_distances_cuda  # it imports this module
+
+        return pair_distances_cuda(x, pairs, max_index)
+    return pair_distances(x, pairs, box)
+
+
 class FeatureLayer(nn.Module):
     """Map coordinates [batch, N, 3] to features [batch, d_r] (molann
     ``FeatureLayer`` equivalent).
@@ -274,13 +315,44 @@ class FeatureLayer(nn.Module):
             feature_list = remapped
         self.feature_list = tuple(feature_list)
         self.box = box
+        # the order of evaluation: ("pairs", g) for the g-th run of two or
+        # more consecutive bonds, ("one", n) for any other feature n
+        self._plan = []
+        #: (first feature, number of pairs) of each grouped run of bonds
+        self.pair_groups = ()
+        self._pair_max = ()  # each group's largest atom index
+        run: list = []
+        for n, f in enumerate(self.feature_list + (None,)):
+            if f is not None and f.feature_type == "bond":
+                run.append(n)
+                continue
+            if len(run) >= 2:
+                self._add_pair_group(run)
+            else:
+                self._plan.extend(("one", i) for i in run)
+            run = []
+            if f is not None:
+                self._plan.append(("one", n))
         # index tensors live on the layer's device, so evaluation never
         # copies indices from the host
-        for n, f in enumerate(self.feature_list):
-            self.register_buffer(
-                f"_idx{n}", torch.as_tensor(f.atom_indices, dtype=torch.int64),
-                persistent=False,
-            )
+        for kind, n in self._plan:
+            if kind == "one":
+                f = self.feature_list[n]
+                self.register_buffer(
+                    f"_idx{n}",
+                    torch.as_tensor(f.atom_indices, dtype=torch.int64),
+                    persistent=False,
+                )
+
+    def _add_pair_group(self, run: list) -> None:
+        g = len(self.pair_groups)
+        pairs = np.array([self.feature_list[n].atom_indices for n in run],
+                         dtype=np.int32)
+        self.register_buffer(f"_pairs{g}", torch.as_tensor(pairs),
+                             persistent=False)
+        self._plan.append(("pairs", g))
+        self.pair_groups += ((run[0], len(run)),)
+        self._pair_max += (int(pairs.max()),)
 
     @property
     def output_dimension(self) -> int:
@@ -305,6 +377,7 @@ class FeatureLayer(nn.Module):
             return s
         a, b = x[:, idx[0], :], x[:, idx[1], :]
         if ft == "bond":
+            _count_distances("cvf.features.pairs_single", x.shape[0])
             return _pair_distance(a, b, self.box)[:, None]
         c = x[:, idx[2], :]
         if ft == "angle":
@@ -321,10 +394,19 @@ class FeatureLayer(nn.Module):
         if squeeze:
             x = x[None]
         feats = [
-            self._eval_feature(n, f, x) for n, f in enumerate(self.feature_list)
+            self._eval_pairs(n, x) if kind == "pairs"
+            else self._eval_feature(n, self.feature_list[n], x)
+            for kind, n in self._plan
         ]
-        out = torch.cat(feats, dim=1)
+        # one grouped run alone is the output as it is, with no copy
+        out = feats[0] if len(feats) == 1 else torch.cat(feats, dim=1)
         return out[0] if squeeze else out
+
+    def _eval_pairs(self, g: int, x: torch.Tensor) -> torch.Tensor:
+        pairs = getattr(self, f"_pairs{g}")
+        _count_distances("cvf.features.pairs_grouped",
+                         x.shape[0] * pairs.shape[0])
+        return _grouped_distances(x, pairs, self._pair_max[g], self.box)
 
     def get_feature_info(self):
         import pandas as pd

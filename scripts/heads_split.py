@@ -65,7 +65,7 @@ def _params(dev, replicas=None):
 def _heads(params, x, splits):
     n = len(DIMS) - 1
     return module._stacked_apply(params[:n], params[n:], x, "tanh", None,
-                                 splits)
+                                 (splits,) * n)
 
 
 def _steps(dev, rows):
@@ -186,8 +186,9 @@ def main():
             continue
         params = _params(dev, replicas)
         batch = K * (replicas or 1)
+        # every layer of DIMS is one 32 x 32 output tile: one S for all
         rule = module.split_count("cuda", True, args.rows, batch,
-                                  torch.float32, sms)
+                                  torch.float32, sms, DIMS[1], DIMS[0])
         splits = ([int(s) for s in args.splits.split(",")] if args.splits
                   else SPLITS[name])
         if rule not in splits:

@@ -11,7 +11,9 @@ pinned host buffers, the copies on their own stream, K1 and K2 streamed),
 and the data mesh at one rank of an NCCL group (captured meshed epochs and
 streamed steps against eager and unmeshed ones, NCCL's kernel in each
 replayed step, a meshed sweep), the stacked heads' products split along
-the batch (replays counting them, bit for bit equal to eager epochs), and
+the batch (replays counting them, bit for bit equal to eager epochs), K5
+(grouped pair distances) against its plain version, its backward, and a
+captured distance epoch against eager epochs, and
 the samplers (each report block a
 captured graph bit for bit equal to eager blocks, one replay per block,
 metadynamics through K2 against the quaternion layer, a failed capture).
@@ -1251,10 +1253,10 @@ def test_streamed_runs_equal_resident_runs(dev, tmp_path, kind):
     if kind == "fused":
         assert streamed._stream_graphs["train"].launches == {
             "kabsch_qcp": 0, "fused_align": 2, "stats_fwd": 1,
-            "stats_bwd": 1}
+            "stats_bwd": 1, "pair_distances": 0}
         assert streamed._stream_graphs["test"].launches == {
             "kabsch_qcp": 0, "fused_align": 2, "stats_fwd": 1,
-            "stats_bwd": 0}
+            "stats_bwd": 0, "pair_distances": 0}
     # a second call replays the same step graphs
     graphs = dict(streamed._stream_graphs)
     assert _train(streamed, 2) == _train(resident, 2) == _schedule(kind, 2)
@@ -1646,3 +1648,167 @@ def test_a_failure_inside_a_sampler_block_raises_and_leaves_no_graph(
         _TripleWell(), 200, str(tmp_path), X0=[1.0, 0.0], report_interval=50,
         seed=0, verbose=False, device="cuda")
     assert np.isfinite(frames).all()
+
+
+# ---------------------------------------------------------------------------
+# K5: grouped pair distances
+
+
+def _all_pairs(N):
+    """[P, 2] int32, as a feature layer keeps a run of bonds."""
+    i, j = torch.triu_indices(N, N, offset=1)
+    return torch.stack([i, j], 1).to(torch.int32)
+
+
+@pytest.mark.parametrize("B,N,dtype", [
+    (20000, 93, torch.float32), (37, 93, torch.float32),
+    (5, 1000, torch.float32), (3, 4200, torch.float32),
+    (64, 93, torch.float64), (3, 4200, torch.float64)])
+def test_k5_pair_distances_match_plain(dev, B, N, dtype):
+    """K5 against the plain grouped version at the benchmark's shapes (B =
+    20,000, CLN025's 93 atoms, 4,278 pairs), at a few frames, at larger
+    frames, past the 48 KiB of shared memory a block takes without opting
+    in to more (4,200 atoms), and in float64."""
+    from colvarsfinder_tpu_torch.ops.features import pair_distances
+    from colvarsfinder_tpu_torch.ops.pair_cuda import pair_distances_cuda
+
+    g = torch.Generator(device=dev).manual_seed(B + N)
+    x = (torch.randn(B, N, 3, device=dev, generator=g) * 2.0).to(dtype)
+    pairs = _all_pairs(N).to(dev)
+    if N > 200:  # a few thousand pairs of the larger frames
+        pairs = pairs[torch.randperm(len(pairs), device=dev,
+                                     generator=g)[:3000]]
+    _cuda.reset_launch_counts()
+    got = pair_distances_cuda(x, pairs, int(pairs.max()))
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["pair_distances"] == 1
+    assert got.dtype == dtype
+    plain = pair_distances(x, pairs)
+    if dtype == torch.float64:
+        # the same operations in the same order, rounded the same way
+        torch.testing.assert_close(got, plain, rtol=1e-15, atol=0)
+        return
+    exact = pair_distances(x.double(), pairs)
+    # every distance, in float32: within an ulp or two of float64's, as
+    # the plain version is
+    err = ((got.double() - exact).abs() / exact).max().item()
+    err_plain = ((plain.double() - exact).abs() / exact).max().item()
+    assert err <= max(2 * err_plain, 2.4e-7), (err, err_plain)
+    torch.testing.assert_close(got, plain, rtol=3e-7, atol=1e-6)
+
+
+def test_k5_refuses_what_it_cannot_take(dev):
+    """Frames past the shared memory a block may opt in to, a dtype other
+    than float32 or float64, and an index past the frame raise, on their
+    own and through a feature layer; nothing falls back to the plain
+    version on the card."""
+    from colvarsfinder_tpu_torch.ops.pair_cuda import (
+        max_atoms,
+        pair_distances_cuda,
+    )
+
+    most = max_atoms(dev, torch.float32)
+    assert most >= 4200 and max_atoms(dev, torch.float64) == most // 2
+    pairs = torch.tensor([[0, most]], device=dev, dtype=torch.int32)
+    _cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="at most"):
+        pair_distances_cuda(torch.zeros(2, most + 1, 3, device=dev), pairs,
+                            most)
+    layer = FeatureLayer([Feature("a", "bond", (0, 1)),
+                          Feature("b", "bond", (1, 2))]).to(dev)
+    x = torch.randn(4, 3, 3, device=dev)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        layer(x.to(torch.bfloat16))
+    with pytest.raises(IndexError, match="out of range"):
+        pair_distances_cuda(x, pairs, most)
+    assert _cuda.LAUNCHES["pair_distances"] == 0
+    layer(x)
+    assert _cuda.LAUNCHES["pair_distances"] == 1
+
+
+def test_k5_backward_is_the_plain_vjp(dev):
+    """K5's backward: the plain version's vjp, recorded under
+    ``create_graph`` so that it is differentiated once more."""
+    from colvarsfinder_tpu_torch.ops.features import pair_distances
+    from colvarsfinder_tpu_torch.ops.pair_cuda import pair_distances_cuda
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(64, 20, 3, device=dev, generator=g).requires_grad_()
+    pairs = _all_pairs(20).to(dev)
+    cot = torch.randn(64, len(pairs), device=dev, generator=g)
+
+    def derivatives(f):
+        (d1,) = torch.autograd.grad((f(x, pairs) * cot).sum(), x,
+                                    create_graph=True)
+        (d2,) = torch.autograd.grad((d1 * d1).sum(), x)
+        return d1, d2
+
+    def k5(x, pairs):
+        return pair_distances_cuda(x, pairs, int(pairs.max()))
+
+    for a, b in zip(derivatives(k5), derivatives(pair_distances)):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    # in float64 through K5, gradcheck and gradgradcheck hold
+    layer = FeatureLayer([Feature(f"d{i}", "bond", tuple(p))
+                          for i, p in enumerate(pairs[:10].tolist())])
+    xd = x.detach()[:2].double().requires_grad_()
+    _cuda.reset_launch_counts()
+    assert torch.autograd.gradcheck(layer.to(dev), (xd,))
+    assert torch.autograd.gradgradcheck(layer.to(dev), (xd,))
+    assert _cuda.LAUNCHES["pair_distances"] > 0
+
+
+def _distance_task(path, epochs):
+    """The default transfer-operator route from every pair distance of 12
+    atoms (66 features, no alignment), [66, 16, 16, 16, 1] heads."""
+    rng = np.random.default_rng(4)
+    ref = rng.standard_normal((12, 3))
+    traj = (ref[None] + 0.3 * rng.standard_normal((G_FRAMES, 12, 3))
+            ).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, G_FRAMES).astype(np.float32)
+    layer = FeatureLayer([
+        Feature(f"d{i}_{j}", "bond", (i, j))
+        for i in range(12) for j in range(i + 1, 12)])
+    traj_obj = WeightedTrajectory(trajectory=traj, weights=w, dt=G_DT,
+                                  verbose=False)
+    return EigenFunctionTask(
+        traj_obj, PreprocessingANN(None, layer),
+        EigenFunctions([66, 16, 16, 16, 1], G_K, seed=0), str(path),
+        alpha=20.0, eig_weights=[1.0, 0.2], lag_tau=G_LAG * G_DT,
+        learning_rate=0.002, save_model_every_step=0, k=G_K,
+        batch_size=G_BATCH, num_epochs=epochs, test_ratio=0.1, verbose=False,
+        tensorboard=False, seed=0, debug_mode=False, progress_interval=1)
+
+
+def test_distance_epochs_replay_k5_and_equal_eager_epochs(dev, tmp_path):
+    """A captured epoch of a distance task launches K5 on X and X_l of
+    every batch, holds the feature layer's pair counters, and each replay
+    counts both; the replayed epochs equal eager ones bit for bit."""
+    from colvarsfinder_tpu_torch import logging_utils
+
+    graph = _distance_task(tmp_path / "graph", 3)
+    eager = _distance_task(tmp_path / "eager", 3)
+    eager._eager_on_card = True
+    _train(graph)
+    _train(eager)
+    logging_utils.reset_trace()
+    replays = 2
+    counts = _train(graph, replays)  # replays only
+    counted = logging_utils.counters()
+    held = graph._graph.launches
+    batches = G_TRAIN + G_TEST
+    assert held["pair_distances"] == 2 * batches
+    assert counts["pair_distances"] == replays * 2 * batches
+    # 66 distances of every frame of X and X_l, train and test batches
+    grouped = held["cvf.features.pairs_grouped"]
+    assert grouped % (2 * 66) == 0
+    assert grouped // (2 * 66) >= G_TRAIN * G_BATCH
+    assert "cvf.features.pairs_single" not in held
+    for name in ("cvf.features.pairs_grouped", "cvf.heads.split",
+                 "cvf.heads.whole"):
+        assert counted.get(name, 0) == replays * held.get(name, 0), name
+    _train(eager, replays)
+    np.testing.assert_array_equal(_rows(graph), _rows(eager))
+    for a, b in zip(graph.model.parameters(), eager.model.parameters()):
+        assert torch.equal(a, b)
+    logging_utils.reset_trace()

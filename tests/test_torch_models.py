@@ -135,7 +135,7 @@ def test_split_heads_product_equals_the_whole_product(k, rows, splits,
 
     def heads(s):
         def apply(x, *p):
-            return _stacked_apply(p[:3], p[3:], x, "tanh", None, s)
+            return _stacked_apply(p[:3], p[3:], x, "tanh", None, (s,) * 3)
 
         if replicas is None:
             return apply
@@ -179,7 +179,8 @@ F32, BF16 = torch.float32, torch.bfloat16
 def test_split_count_rule(case):
     device, grad, rows, batch, dtype = case
     sms = 132  # an H100 SXM
-    s = split_count(device, grad, rows, batch, dtype, sms)
+    # the dipeptide's first layer, 20 x 30: one output tile a head
+    s = split_count(device, grad, rows, batch, dtype, sms, 20, 30)
     if (device == "cpu" or not grad or dtype != F32
             or rows < 2 * SPLIT_MIN_ROWS):
         assert s == 1
@@ -191,7 +192,7 @@ def test_split_count_rule(case):
         if rows == 20_000:
             assert batch * s >= sms
     # the same shapes asked again give the same answer: no state
-    assert split_count(device, grad, rows, batch, dtype, sms) == s
+    assert split_count(device, grad, rows, batch, dtype, sms, 20, 30) == s
 
 
 def test_cpu_heads_keep_the_whole_product_and_count_it():
@@ -209,7 +210,8 @@ def test_cpu_heads_keep_the_whole_product_and_count_it():
     assert "cvf.heads.split" not in counted
     params = list(model.weights) + list(model.biases)
     torch.testing.assert_close(
-        _stacked_apply(params[:3], params[3:], x, "tanh", None, 1), want,
+        _stacked_apply(params[:3], params[3:], x, "tanh", None, (1,) * 3),
+        want,
         rtol=0, atol=0)
     stacked = torch.stack([model.weights[0]] * 3).detach().requires_grad_()
 

@@ -67,8 +67,9 @@ def test_no_source_names_jax_or_the_jax_package():
 
 def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in (PKG / "csrc").iterdir())
-    assert names == ["fused_eigen.cu", "kabsch.cu", "qcp.cuh"]
-    assert set(_cuda.SOURCES) == {"kabsch", "fused_eigen"}
+    assert names == ["fused_eigen.cu", "kabsch.cu", "pair_distances.cu",
+                     "qcp.cuh"]
+    assert set(_cuda.SOURCES) == {"kabsch", "fused_eigen", "pair_distances"}
     # built beside the package, in a directory git ignores
     assert _cuda.BUILD_DIR == REPO / "build" / "cvf_torch_kernels"
     assert "build/" in (REPO / ".gitignore").read_text().split()
