@@ -12,7 +12,7 @@ Phases (each raises on failure; nothing is caught):
 
 1. the card's name and power limit, the torch and CUDA versions, and the
    build of the CUDA kernels from ``colvarsfinder_tpu_torch/csrc``;
-2. kernels K1-K5 against their plain PyTorch versions on the card, at the
+2. kernels K1-K6 against their plain PyTorch versions on the card, at the
    main path's shapes (B = 20,000 frames of 10 atoms, dims [30,20,20,20,1],
    k = 2; K5 on frames of CLN025's 93 atoms and all 4,278 pairs of them,
    PAIR_ATOMS), at a ragged B = 37 and at one sample past a multiple of
@@ -22,7 +22,10 @@ Phases (each raises on failure; nothing is caught):
    must repeat bit for bit; K2 also on frames of the dipeptide's 22 atoms
    with 10 unsorted align indices; K1 also on a view 4 bytes into its
    buffer, a zero frame (exactly the identity) and frames with two nearly
-   equal singular values;
+   equal singular values; K6 (the quaternion layer's rotation solve) bit
+   for bit equal to the plain chain, there and on zero, sub-1e-12,
+   reflected, near-degenerate, huge and tiny frames and with 18 Newton
+   steps;
 3. each kernel's device time (CUDA events, median of 21 batches of
    back-to-back calls queued behind a device sleep) beside its bound
    (the larger of bytes over 3.35 TB/s and flops over 67 TFLOP/s) and
@@ -34,8 +37,10 @@ Phases (each raises on failure; nothing is caught):
 4. transfer-operator EigenFunctionTask training on data shaped like the
    repo's headline benchmark (120,000 frames, 10 atoms, lag 5, batch
    20,000, seed 0) with FusedAlignmentLayer and fused_step=True (K2, K3,
-   K4), held against the plain-PyTorch step with AlignmentLayer
-   (method='quaternion') on the card; then a short run through
+   K4), held against the plain step with AlignmentLayer
+   (method='quaternion') on the card, whose rotation solve is K6, itself
+   held bit for bit against the same run aligned by align_frames, in
+   PyTorch's own kernels alone (no launch); then a short run through
    AlignmentLayer(method='cuda') (K1) with non-uniform align weights, held
    against the same run with method='quaternion'; the plain run saves its
    model, and
@@ -251,6 +256,8 @@ TOL = {
     "stats_fwd": dict(atol=1e-4, rtol=5e-6),
     "stats_bwd": dict(atol=1e-3, rtol=2e-3),
     "pair_distances": dict(atol=1e-6, rtol=3e-7),
+    # K6 repeats the plain chain's operations in PyTorch's order: every bit
+    "kabsch_exact": dict(atol=0.0, rtol=0.0),
 }
 # K3's head outputs against the plain heads: f32 FMA chains against
 # cuBLAS (ten times the CPU tests' model-forward bar)
@@ -440,6 +447,9 @@ KERNELS = {
     # no TPU kernel: there each bond is its own XLA computation
     "pair_distances": ("colvarsfinder_tpu_torch/csrc/pair_distances.cu",
                        "colvarsfinder_tpu/ops/features.py:310"),
+    # no TPU kernel: there XLA fuses the quaternion chain
+    "kabsch_exact": ("colvarsfinder_tpu_torch/csrc/kabsch_exact.cu",
+                     "colvarsfinder_tpu/ops/alignment.py:102"),
 }
 
 
@@ -573,6 +583,41 @@ def k1_cases(C, dev):
             raise AssertionError("K1: a zero frame is not exactly the identity")
 
 
+def k6_cases(C, dev):
+    """K6 against the plain chain, every bit, beyond the main path's
+    shapes: zero and sub-1e-12 frames, reflected, near-degenerate, huge and
+    tiny scales, and 18 Newton steps (``newton_diff_mode(2)``)."""
+    from colvarsfinder_tpu_torch.ops.alignment import (
+        kabsch_rotations_quat,
+        newton_diff_mode,
+    )
+    from colvarsfinder_tpu_torch.ops.kabsch_cuda import (
+        NEWTON_ITERS,
+        kabsch_exact_launch,
+    )
+
+    zero = C[:EDGE_B].clone()
+    zero[0] = 0.0
+    zero[1] *= 1e-13
+    near = torch.from_numpy(near_degenerate_covariances(4096)).to(dev)
+    for what, Ck, extra in (("zero and sub-1e-12 frames", zero, 0),
+                            ("reflected frames", -C, 0),
+                            ("near-degenerate frames", near, 0),
+                            ("frames scaled by 1e15", 1e15 * C, 0),
+                            ("frames scaled by 1e-10", 1e-10 * C, 0),
+                            ("18 Newton steps", C, 2)):
+        got = kabsch_exact_launch(Ck.contiguous(), NEWTON_ITERS + extra)
+        with newton_diff_mode(extra):
+            want = kabsch_rotations_quat(Ck)
+        torch.cuda.synchronize()
+        check_close("kabsch_exact", got, want)
+        log(f"  kabsch_exact B={Ck.shape[0]:6d}, {what}: bit for bit equal "
+            "to the plain chain")
+    if not torch.equal(kabsch_exact_launch(zero, NEWTON_ITERS)[0],
+                       torch.eye(3, device=dev)):
+        raise AssertionError("K6: a zero frame is not exactly the identity")
+
+
 def phase_kernels(ref_np, traj, weights, dev, cvf):
     """Phases 2 and 3: every kernel against its plain version, and timed."""
     from colvarsfinder_tpu_torch.ops import _cuda
@@ -599,10 +644,12 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
     from colvarsfinder_tpu_torch.ops.features import pair_distances
     from colvarsfinder_tpu_torch.ops.kabsch_cuda import (
         KABSCH_TILE,
+        NEWTON_ITERS,
         AlignShape,
         align_launch_shape,
         align_resident_blocks,
         fused_align_launch,
+        kabsch_exact_launch,
         kabsch_qcp_launch,
         kabsch_resident_blocks,
     )
@@ -691,6 +738,8 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
                           lambda: list(k4_plain())),
             "pair_distances": (lambda: pair_distances_launch(Xp, pairs),
                                lambda: pair_distances(Xp, pairs)),
+            "kabsch_exact": (lambda: kabsch_exact_launch(C, NEWTON_ITERS),
+                             lambda: kabsch_rotations_quat(C)),
         }
         for name, (kern, plain) in cases.items():
             got, want = kern(), plain()
@@ -739,6 +788,8 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
             # L2); 3 subtractions, 3 products, 2 sums and a root a pair
             "pair_distances": (4 * B * (3 * PAIR_ATOMS + len(pairs)),
                                9 * B * len(pairs)),
+            # K1's work, without FMAs
+            "kabsch_exact": (2 * B * 9 * 4, B * (16 * 12 + 450)),
         }
         log(f"  (tanh evaluations per K3 call: {2 * B * K * hid}; not in the "
             "flop count)")
@@ -771,9 +822,13 @@ def phase_kernels(ref_np, traj, weights, dev, cvf):
         f"indices {i22.tolist()}: max |kernel - plain| = "
         f"{max_err(got, want):.3e} (tolerance {TOL['fused_align']})")
     k1_cases(C_main, dev)
+    k6_cases(C_main, dev)
 
     k1 = results["kabsch_qcp"]["ms"] * 1e3
     log(f"  K1 {k1:.2f} us (before its redesign: {K1_BEFORE_US} us)")
+    log(f"  K6 {results['kabsch_exact']['ms'] * 1e3:.2f} us, every bit the "
+        f"plain chain's ({results['kabsch_exact']['plain_ms'] * 1e3:.2f} us "
+        "of its kernels)")
     k2 = results["fused_align"]["ms"] * 1e3
     k3 = results["stats_fwd"]["ms"] * 1e3
     k3_k4 = k3 + results["stats_bwd"]["ms"] * 1e3
@@ -815,6 +870,16 @@ def make_task(cvf, traj_obj, ref, path, fused, method, epochs,
               flat=False, **kw):
     if method == "fused":
         align = cvf.FusedAlignmentLayer(ref, list(range(N_ATOMS)))
+    elif method == "plain chain":
+        # the quaternion layer's alignment as align_frames computes it, in
+        # PyTorch's own kernels alone: the reference of the K6 route
+        from colvarsfinder_tpu_torch.ops.alignment import align_frames
+
+        layer = cvf.AlignmentLayer(ref, list(range(N_ATOMS)),
+                                   align_weights=align_weights)
+        align = cvf.ops.Lambda(lambda x: align_frames(
+            x, layer.ref_centered, layer.align_idx, layer.align_weights))
+        align.layer = layer  # moves with the model
     else:
         align = cvf.AlignmentLayer(ref, list(range(N_ATOMS)), method=method,
                                    align_weights=align_weights)
@@ -854,6 +919,7 @@ def phase_training(ref, traj_np, w_np, cvf):
             ("fused", True, "fused", EPOCHS),
             ("fused eager", True, "fused", EPOCHS),
             ("plain", False, "quaternion", EPOCHS),
+            ("plain ref", False, "plain chain", EPOCHS),
             # weighted alignment, whose kernel route is K1
             ("k1", True, "cuda", K1_EPOCHS),
             ("k1 plain", True, "quaternion", K1_EPOCHS),
@@ -899,23 +965,37 @@ def phase_training(ref, traj_np, w_np, cvf):
                 check_scripted_cv(task, f"{tmp}/{label}/latest", traj_np)
 
     # the schedule: per epoch nb_train steps and nb_test test batches; each
-    # batch aligns X and X_l (K2 or K1) and computes the stats (K3); each
-    # train step runs the stats backward (K4)
+    # batch aligns X and X_l (K2, K1, or the quaternion layer's K6; the
+    # plain reference launches nothing) and, with the fused step, computes
+    # the stats (K3); each fused train step runs the stats backward (K4)
     for label, align_kernel in (("fused", "fused_align"),
                                 ("fused eager", "fused_align"),
-                                ("k1", "kabsch_qcp"), ("k1 plain", None)):
+                                ("k1", "kabsch_qcp"),
+                                ("k1 plain", "kabsch_exact"),
+                                ("plain", "kabsch_exact"),
+                                ("plain ref", None)):
         r = runs[label]
         e = r["epochs"]
-        want = {**dict.fromkeys(r["counts"], 0),
-                "stats_fwd": e * (nb_train + nb_test),
-                "stats_bwd": e * nb_train}
+        want = dict.fromkeys(r["counts"], 0)
         if align_kernel:
             want[align_kernel] = 2 * e * (nb_train + nb_test)
+        if not label.startswith("plain"):
+            want.update(stats_fwd=e * (nb_train + nb_test),
+                        stats_bwd=e * nb_train)
         if r["counts"] != want:
             raise AssertionError(f"{label}: launches {r['counts']}, the "
                                  f"schedule implies {want}")
-    if any(runs["plain"]["counts"].values()):
-        raise AssertionError(f"plain step launched {runs['plain']['counts']}")
+
+    # the K6 route against PyTorch's own kernels: bit for bit
+    k6, chain = runs["plain"], runs["plain ref"]
+    same = np.array_equal(k6["rows"], chain["rows"]) and all(
+        torch.equal(a, b) for a, b in zip(k6["params"], chain["params"]))
+    log(f"  plain (K6) vs plain ref (align_frames), {EPOCHS} epochs: every "
+        f"batch's metric row and every final parameter bit for bit equal: "
+        f"{same}")
+    if not same:
+        raise AssertionError("the plain route through K6 differs from the "
+                             "plain chain")
 
     for kern, plain in (("fused", "plain"), ("k1", "k1 plain")):
         for col, name in ((0, "loss"), (3, "eig_1")):
@@ -1504,7 +1584,8 @@ def phase_autoencoders(card, ref, traj_np, w_np, cvf):
             fused = kw.get("method", "fused") == "fused"
             if kind == "ae":
                 check_launches(f"{label} build", build,
-                               {"fused_align": 1 if fused else 0})
+                               {"fused_align": 1 if fused else 0,
+                                "kabsch_exact": 0 if fused else 1})
                 check_launches(label, counts, {})
             elif kind == "gen_gram":
                 # one frame at construction for the feature width d_r, then
@@ -1519,7 +1600,8 @@ def phase_autoencoders(card, ref, traj_np, w_np, cvf):
                 per_batch = 3 if kind == "gen_vjp" else 2
                 check_launches(f"{label} build", build, {})
                 check_launches(label, counts, {
-                    "fused_align": per_batch * epochs * nb if fused else 0})
+                    "fused_align" if fused else "kabsch_exact":
+                    per_batch * epochs * nb})
             if label == "ae plain":
                 check_scripted_cv(task, f"{tmp}/{label}/latest", traj_np,
                                   label=label)
@@ -1572,7 +1654,8 @@ def phase_autoencoders(card, ref, traj_np, w_np, cvf):
                 cvf, card, "ae", traj_obj, ref, f"{tmp}/ae k1 {method}", 1,
                 method=method, align_weights=ALIGN_WEIGHTS)
             check_launches(f"ae k1 {method} build", build,
-                           {"kabsch_qcp": 1 if method == "cuda" else 0})
+                           {"kabsch_qcp" if method == "cuda" else
+                            "kabsch_exact": 1})
             feats[method] = task._feature_traj
         err = max_err(feats["cuda"], feats["quaternion"])
         log(f"  AE features through K1 (weighted), {N_FRAMES} frames: max "
@@ -1938,7 +2021,8 @@ def phase_sweep(card, ref, traj_np, w_np, cvf, runs):
                     f"{e.count:6d}x  {e.key[:70]}")
             want = 2 * SWEEP_EPOCHS * (nb_train + nb_test)
             if counts != {**dict.fromkeys(counts, 0),
-                          "fused_align": want if method == "fused" else 0}:
+                          "fused_align" if method == "fused" else
+                          "kabsch_exact": want}:
                 raise AssertionError(f"{label}: launches {counts}")
             out[label] = row
             sweeps[label] = (task, res)
@@ -3372,11 +3456,12 @@ def phase_md_input(card, cvf):
 
 
 def per_batch(counts, task, epochs):
-    """Launches per batch (K2, K3) and per train step (K1 and K4's) of
+    """Launches per batch (K1, K2, K3, K6) and per train step (K4) of
     ``epochs`` epochs of ``task``."""
     nb_train = len(task.loss_list[0][0])
     nb_all = nb_train + len(task.loss_list[0][1])
     return {"kabsch_qcp": counts["kabsch_qcp"] / (epochs * nb_all),
+            "kabsch_exact": counts["kabsch_exact"] / (epochs * nb_all),
             "fused_align": counts["fused_align"] / (epochs * nb_all),
             "stats_fwd": counts["stats_fwd"] / (epochs * nb_all),
             "stats_bwd": counts["stats_bwd"] / (epochs * nb_train)}
@@ -4011,6 +4096,7 @@ def main():
         runs = phase_training(ref, traj_np, w_np, cvf)
         add_launches("main path", {
             "kabsch_qcp": runs["k1"]["counts"]["kabsch_qcp"],
+            "kabsch_exact": runs["plain"]["counts"]["kabsch_exact"],
             **{name: runs["fused"]["counts"][name]
                for name in ("fused_align", "stats_fwd", "stats_bwd")}})
         results["throughput_samples_per_s"] = {

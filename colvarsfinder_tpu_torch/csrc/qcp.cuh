@@ -1,4 +1,6 @@
-// QCP optimal-rotation solve shared by the two Kabsch kernels (kabsch.cu).
+// QCP optimal-rotation solve shared by the Kabsch kernels: K1 and K2
+// (kabsch.cu), and K6 (kabsch_exact.cu), which is built without FMA
+// contraction.
 //
 // Device counterpart of quaternion_from_covariance in
 // colvarsfinder_tpu_torch/ops/alignment.py (itself a port of
@@ -23,8 +25,10 @@ constexpr int kNewtonIters = 16;
 
 // c: the 9 entries (row-major) of a covariance pre-normalized by ||C||_F.
 // R: the 9 rotation entries (row-major) in the row-vector convention
-// y = x @ R.
-__device__ __forceinline__ void qcp_rotation(const float c[9], float R[9]) {
+// y = x @ R. iters: Newton steps (kabsch_exact.cu takes 16 + the plain
+// chain's extra differentiable steps; K1 and K2 always 16).
+__device__ __forceinline__ void qcp_rotation(const float c[9], float R[9],
+                                             int iters = kNewtonIters) {
     const float sxx = c[0], sxy = c[1], sxz = c[2];
     const float syx = c[3], syy = c[4], syz = c[5];
     const float szx = c[6], szy = c[7], szz = c[8];
@@ -53,7 +57,7 @@ __device__ __forceinline__ void qcp_rotation(const float c[9], float R[9]) {
 
     float lam = 2.0f * sqrtf(fro2);
 #pragma unroll
-    for (int it = 0; it < kNewtonIters; ++it) {
+    for (int it = 0; it < iters; ++it) {
         const float p = ((lam * lam + c2) * lam + c1) * lam + c0;
         const float dp = (4.0f * lam * lam + 2.0f * c2) * lam + c1;
         lam = lam - p / (fabsf(dp) > 1e-12f ? dp : 1e-12f);

@@ -134,8 +134,10 @@ class Recorder:
         return Span(self, name, attrs)
 
     def count(self, name: str, n: int = 1) -> None:
-        """Add ``n`` to the counter ``name``."""
-        if self.enabled:
+        """Add ``n`` to the counter ``name``. A size of a symbolic trace
+        (``torch.export``'s ``torch.SymInt``) counts nothing: the trace
+        evaluates nothing."""
+        if self.enabled and not isinstance(n, torch.SymInt):
             self._counters[name] = self._counters.get(name, 0) + n
 
     def spans(self) -> list:

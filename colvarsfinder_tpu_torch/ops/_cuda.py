@@ -54,11 +54,15 @@ __all__ = [
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cvf_torch_kernels"
-SOURCES = ("kabsch", "fused_eigen", "pair_distances")
+SOURCES = ("kabsch", "fused_eigen", "pair_distances", "kabsch_exact")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+#: flags a library takes beyond :data:`NVCC_FLAGS`: K6 matches PyTorch's
+#: kernels bit for bit, one rounded operation at a time, so no product of
+#: it may be contracted into an FMA
+EXTRA_FLAGS = {"kabsch_exact": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,12 +84,15 @@ _SIGNATURES = {
         "cvf_pair_distances": (_P, _P, _P, _I, _I, _I, _I, _P),
         "cvf_pair_distances_max_atoms": (_I, _P),
     },
+    "kabsch_exact": {
+        "cvf_kabsch_exact": (_P, _P, _I, _I, _P),
+    },
 }
 
 #: the kernel wrappers, each counting its launches in the recorder's
 #: counter ``COUNTER + name``, where it launches its kernel and nowhere else
 KERNELS = ("kabsch_qcp", "fused_align", "stats_fwd", "stats_bwd",
-           "pair_distances")
+           "pair_distances", "kabsch_exact")
 COUNTER = "cvf.kernel.launches."
 
 
@@ -179,12 +186,16 @@ def _nvcc() -> str:
     )
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(name)).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
@@ -195,7 +206,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+    cmd = [_nvcc(), *_flags(name), "-I", str(CSRC), "-o", str(tmp),
            str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
@@ -280,7 +291,7 @@ def build_copies(name: str, edits: dict, directory) -> dict:
                 (d / fname).write_text(text)
             so = d / f"{name}.so"
             procs[copy] = (so, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(so),
+                [_nvcc(), *_flags(name), "-I", str(CSRC), "-o", str(so),
                  str(d / f"{name}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         libs = {}

@@ -13,6 +13,12 @@ Every frame is rotated onto a reference structure using a subset of
 * ``method='cuda'`` (``'pallas'``, the JAX package's name, is accepted for
   it): the same QCP math as a CUDA kernel (:mod:`.kabsch_cuda`).
 
+:class:`AlignmentLayer` with ``method='quaternion'`` solves the rotations of
+float32 CUDA frames in one launch of kernel K6 (:mod:`.kabsch_cuda`), which
+equals the plain chain to every bit, its backward being the plain chain's
+vjp; the CPU, other dtypes and :func:`align_frames` itself run the plain
+chain.
+
 The row-vector convention ``y = x @ R`` is used throughout.
 """
 
@@ -24,8 +30,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 from torch import nn
+from torch._subclasses.fake_tensor import is_fake
 
 from ..config import default_dtype
+from ..logging_utils import count
 
 __all__ = [
     "AlignmentLayer",
@@ -260,7 +268,13 @@ def kabsch_rotations_quat(C: torch.Tensor, iters: int = 16) -> torch.Tensor:
     """Optimal rotations via QCP — the plain version of the K1 kernel
     (:func:`.kabsch_cuda.kabsch_rotations_cuda`). A frame with
     ||C||_F <= 1e-12 (all align atoms coincident) gets the identity."""
-    norm = torch.sqrt((C * C).sum(dim=(-2, -1), keepdim=True))
+    # ||C||_F^2 summed left to right over the row-major entries, an order
+    # that K6 repeats on the card (a reduction kernel's order is its own)
+    sq = (C * C).reshape(-1, 9).unbind(-1)
+    fro2 = sq[0]
+    for v in sq[1:]:
+        fro2 = fro2 + v
+    norm = torch.sqrt(fro2)[:, None, None]
     ok = norm > 1e-12
     Cn = C / torch.where(ok, norm, torch.ones_like(norm))
     c9 = tuple(Cn[:, i, j] for i in range(3) for j in range(3))
@@ -291,6 +305,38 @@ def align_frames(
         [B, N, 3]: x centered on its align-atom centroid and rotated by the
         optimal Kabsch rotation.
     """
+    if method == "svd":
+        solve = kabsch_rotations_svd
+    elif method == "quaternion":
+        solve = kabsch_rotations_quat
+    elif method in ("cuda", "pallas"):
+        from .kabsch_cuda import kabsch_rotations_cuda as solve
+    else:
+        raise ValueError(f"unknown alignment method '{method}'")
+    return _align(x, ref_centered, align_idx, align_weights, solve)
+
+
+def _layer_quaternion_rotations(C: torch.Tensor) -> torch.Tensor:
+    """The rotation solve of ``AlignmentLayer(method='quaternion')``: kernel
+    K6 for float32 covariances on the card, under ``torch.func`` transforms
+    too, and in a trace of float32 ones (``torch.export``: the program's
+    operator then dispatches by the device it runs on); the plain chain for
+    every other dtype and on the CPU. Both give the same bits; the
+    recorder's counters ``cvf.align.quat_kernel`` and
+    ``cvf.align.quat_plain`` count the frames each way solved (under
+    ``torch.func.vmap``, those of one mapped slice a call)."""
+    if C.dtype == torch.float32 and (C.is_cuda or is_fake(C)):
+        from .kabsch_cuda import kabsch_rotations_exact
+
+        count("cvf.align.quat_kernel", C.shape[0])
+        return kabsch_rotations_exact(C)
+    count("cvf.align.quat_plain", C.shape[0])
+    return kabsch_rotations_quat(C)
+
+
+def _align(x, ref_centered, align_idx, align_weights, solve):
+    """:func:`align_frames` with the rotation solve ``solve``: covariances
+    C [B, 3, 3] -> rotations [B, 3, 3]."""
     sel = x.index_select(1, align_idx)  # [B, m, 3]
     if align_weights is not None:
         # weighted Kabsch: both structures centered on the weighted centroid
@@ -304,17 +350,7 @@ def align_frames(
     if align_weights is not None:
         sel_c = sel_c * align_weights[None, :, None]
     C = _cross_covariances(sel_c, ref_centered)
-    if method == "svd":
-        R = kabsch_rotations_svd(C)
-    elif method == "quaternion":
-        R = kabsch_rotations_quat(C)
-    elif method in ("cuda", "pallas"):
-        from .kabsch_cuda import kabsch_rotations_cuda
-
-        R = kabsch_rotations_cuda(C)
-    else:
-        raise ValueError(f"unknown alignment method '{method}'")
-    return torch.einsum("bni,bij->bnj", x_c, R)
+    return torch.einsum("bni,bij->bnj", x_c, solve(C))
 
 
 class AlignmentLayer(nn.Module):
@@ -330,6 +366,15 @@ class AlignmentLayer(nn.Module):
         method: 'quaternion' (default), 'svd', or 'cuda' ('pallas').
         align_weights: optional per-align-atom weights, or 'masses' with an
             AtomGroup.
+
+    With ``method='quaternion'``, float32 frames on the card have their
+    rotations solved by kernel K6, one launch a call, under ``torch.func``
+    transforms too (:func:`.kabsch_cuda.kabsch_rotations_exact`): the plain
+    QCP chain's operations in its order, so the layer's values, its input
+    gradients and second derivatives by the parameters after it (the
+    generator loss's) are the plain chain's to the bit; the centroid and
+    the two products stay PyTorch's. Other dtypes on the card (float64) and
+    the CPU run the plain chain.
     """
 
     def __init__(
@@ -393,10 +438,14 @@ class AlignmentLayer(nn.Module):
         squeeze = x.dim() == 2
         if squeeze:
             x = x[None]
-        out = align_frames(
-            x, self.ref_centered, self.align_idx,
-            align_weights=self.align_weights, method=self.method,
-        )
+        if self.method == "quaternion":
+            out = _align(x, self.ref_centered, self.align_idx,
+                         self.align_weights, _layer_quaternion_rotations)
+        else:
+            out = align_frames(
+                x, self.ref_centered, self.align_idx,
+                align_weights=self.align_weights, method=self.method,
+            )
         return out[0] if squeeze else out
 
     def show_info(self):

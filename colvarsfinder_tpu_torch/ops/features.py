@@ -257,13 +257,6 @@ def pair_distances(x: torch.Tensor, pairs: torch.Tensor,
                           x.index_select(1, pairs[:, 1]), box)
 
 
-def _count_distances(name: str, n) -> None:
-    """Add ``n`` distances to the recorder's counter ``name``; a symbolic
-    trace (``torch.export``) evaluates nothing, and counts nothing."""
-    if isinstance(n, int):
-        count(name, n)
-
-
 def _grouped_distances(x, pairs, max_index: int, box):
     """:func:`pair_distances`, through kernel K5 on a CUDA tensor without
     a box; with a box (the kernel has no minimum image) or on the CPU, the
@@ -377,7 +370,7 @@ class FeatureLayer(nn.Module):
             return s
         a, b = x[:, idx[0], :], x[:, idx[1], :]
         if ft == "bond":
-            _count_distances("cvf.features.pairs_single", x.shape[0])
+            count("cvf.features.pairs_single", x.shape[0])
             return _pair_distance(a, b, self.box)[:, None]
         c = x[:, idx[2], :]
         if ft == "angle":
@@ -404,8 +397,7 @@ class FeatureLayer(nn.Module):
 
     def _eval_pairs(self, g: int, x: torch.Tensor) -> torch.Tensor:
         pairs = getattr(self, f"_pairs{g}")
-        _count_distances("cvf.features.pairs_grouped",
-                         x.shape[0] * pairs.shape[0])
+        count("cvf.features.pairs_grouped", x.shape[0] * pairs.shape[0])
         return _grouped_distances(x, pairs, self._pair_max[g], self.box)
 
     def get_feature_info(self):

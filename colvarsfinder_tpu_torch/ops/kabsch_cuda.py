@@ -21,17 +21,32 @@ too large for a tile (thousands of atoms) take its direct variant, one
 thread per frame from device memory. :func:`align_launch_shape` picks K2's
 variant.
 
-As the JAX kernels do, both take inputs of any floating dtype, compute in
-float32 and return the input's dtype; their backward differentiates the
-plain formulation at the input in the input's own dtype.
+* :func:`kabsch_rotations_exact` — kernel K6 (``csrc/kabsch_exact.cu``,
+  ``cvf_kabsch_exact``), port-only: the rotation solve of
+  ``AlignmentLayer(method='quaternion')`` on a float32 CUDA tensor, C
+  [B,3,3] -> R [B,3,3] in one launch, equal to every bit to
+  :func:`.alignment.kabsch_rotations_quat` run by PyTorch's kernels (built
+  without FMA contraction, the chain's operations in its order). Backward:
+  that plain chain's vjp, recorded where asked, so the gradients through
+  the layer, and second derivatives by what comes after it, are the plain
+  chain's to the bit; a second derivative by the frames themselves sums
+  its two branches in another order (equal within rounding). It composes
+  with the ``torch.func`` transforms (a vmap rule folds the mapped
+  dimension into one launch). On the TPU XLA fuses the chain, so there is
+  no kernel to replace.
 
-Each launch is a ``torch.library`` operator, ``cvf_torch::kabsch_qcp`` and
-``cvf_torch::fused_align``, so that ``torch.export`` carries the kernels
-into the CV programs (:mod:`..export`): the operator dispatches by the
-tensor's device, to the kernel on a CUDA tensor (which launches or raises)
-and to the plain version on a CPU tensor, and has a fake implementation
-that gives the output's shape and dtype to a trace. Importing this module
-registers both.
+As the JAX kernels do, K1 and K2 take inputs of any floating dtype,
+compute in float32 and return the input's dtype; their backward
+differentiates the plain formulation at the input in the input's own dtype.
+K6 takes float32 alone.
+
+Each launch is a ``torch.library`` operator, ``cvf_torch::kabsch_qcp``,
+``cvf_torch::fused_align`` and ``cvf_torch::kabsch_qcp_exact``, so that
+``torch.export`` carries the kernels into the CV programs (:mod:`..export`):
+the operator dispatches by the tensor's device, to the kernel on a CUDA
+tensor (which launches or raises) and to the plain version on a CPU
+tensor, and has a fake implementation that gives the output's shape and
+dtype to a trace. Importing this module registers all three.
 """
 
 from __future__ import annotations
@@ -43,8 +58,13 @@ import torch
 from torch import nn
 
 from ..logging_utils import count
-from . import _cuda
-from .alignment import align_frames, kabsch_rotations_quat, kabsch_rotations_svd
+from . import _cuda, alignment
+from .alignment import (
+    align_frames,
+    kabsch_rotations_quat,
+    kabsch_rotations_svd,
+    newton_diff_mode,
+)
 from .fused_eigen import SMEM_LIMIT
 
 __all__ = [
@@ -57,10 +77,12 @@ __all__ = [
     "align_launch_shape",
     "align_resident_blocks",
     "align_smem_bytes",
+    "kabsch_exact_launch",
     "kabsch_qcp_launch",
     "kabsch_resident_blocks",
     "fused_align_launch",
     "kabsch_rotations_cuda",
+    "kabsch_rotations_exact",
 ]
 
 #: frames (one thread each) per block of K1, and the tiles it was swept
@@ -81,6 +103,9 @@ STAGED_THREADS = 128
 DIRECT_THREADS = 256
 # floats per frame of the rotation slots (R and centroid; kRStride)
 _R_STRIDE = 13
+#: Newton steps of the plain chain before its extra differentiable ones
+#: (``kabsch_rotations_quat``'s ``iters``; ``csrc/qcp.cuh`` kNewtonIters)
+NEWTON_ITERS = 16
 
 
 class AlignShape(NamedTuple):
@@ -162,6 +187,22 @@ def kabsch_qcp_launch(C: torch.Tensor, tile: int = KABSCH_TILE) -> torch.Tensor:
     return R
 
 
+def kabsch_exact_launch(C: torch.Tensor, newton_steps: int) -> torch.Tensor:
+    """Launch K6 on C [B, 3, 3] float32 (CUDA, contiguous): ``newton_steps``
+    Newton steps a frame, one thread a frame, blocks of 32 frames. No
+    frames, no launch."""
+    _require(C, "C", C.dim() == 3 and C.shape[1:] == (3, 3))
+    R = torch.empty_like(C)
+    if C.shape[0] == 0:
+        return R
+    err = _cuda.library("kabsch_exact").cvf_kabsch_exact(
+        C.data_ptr(), R.data_ptr(), C.shape[0], newton_steps,
+        _cuda.stream_handle())
+    _cuda.check(err, "cvf_kabsch_exact")
+    count(_cuda.COUNTER + "kabsch_exact")
+    return R
+
+
 def fused_align_launch(x: torch.Tensor, ref: torch.Tensor,
                        idx: torch.Tensor,
                        shape: AlignShape | None = None) -> torch.Tensor:
@@ -203,6 +244,36 @@ def _(C):
 @_kabsch_qcp_op.register_fake
 def _(C):
     return C.new_empty(C.shape)
+
+
+@torch.library.custom_op("cvf_torch::kabsch_qcp_exact", mutates_args=(),
+                         device_types="cuda")
+def _kabsch_exact_op(C: torch.Tensor, diff_steps: int) -> torch.Tensor:
+    """K6 on float32 C [B, 3, 3], the Newton steps of
+    :func:`.alignment.newton_diff_mode` ``(diff_steps)``: the kernel on the
+    card."""
+    return kabsch_exact_launch(C, NEWTON_ITERS + max(diff_steps, 0))
+
+
+@_kabsch_exact_op.register_kernel("cpu")
+def _(C, diff_steps):
+    with newton_diff_mode(diff_steps):
+        return kabsch_rotations_quat(C)
+
+
+@_kabsch_exact_op.register_fake
+def _(C, diff_steps):
+    return C.new_empty(C.shape)
+
+
+@_kabsch_exact_op.register_vmap
+def _(info, in_dims, C, diff_steps):
+    # the frames are independent: the mapped dimension joins the batch
+    if in_dims[0] is None:
+        return _kabsch_exact_op(C, diff_steps), None
+    C = C.movedim(in_dims[0], 0)
+    R = _kabsch_exact_op(C.reshape(-1, 3, 3).contiguous(), diff_steps)
+    return R.reshape(C.shape), 0
 
 
 @torch.library.custom_op("cvf_torch::fused_align", mutates_args=(),
@@ -254,6 +325,58 @@ class _KabschQCP(torch.autograd.Function):
     def backward(ctx, g):
         (C,) = ctx.saved_tensors
         return _plain_vjp(kabsch_rotations_svd, C, g)
+
+
+def _rotations_dot(C, g):
+    """<kabsch_rotations_quat(C), g>: its gradient by C is the chain's vjp
+    along g, and ``torch.func.grad`` takes it with g an argument, so that a
+    g carried by an outer transform stays at its own level."""
+    return (kabsch_rotations_quat(C) * g).sum()
+
+
+class _KabschExact(torch.autograd.Function):
+    """K6 on float32 C; the backward and the forward-mode derivative are
+    the plain chain's at C under the Newton mode of the forward, by
+    ``torch.func.grad`` and ``torch.func.jvp``, recorded where grad mode is
+    on, so they compose with the ``torch.func`` transforms (``vmap`` folds
+    the mapped dimension into the operator's batch) and with an ordinary
+    double backward alike."""
+
+    generate_vmap_rule = True
+
+    @staticmethod
+    def forward(C, diff_steps):
+        return torch.ops.cvf_torch.kabsch_qcp_exact(C.contiguous(),
+                                                    diff_steps)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        C, ctx.diff_steps = inputs
+        ctx.save_for_backward(C)
+        ctx.save_for_forward(C)
+
+    @staticmethod
+    def backward(ctx, g):
+        (C,) = ctx.saved_tensors
+        with newton_diff_mode(ctx.diff_steps):
+            return torch.func.grad(_rotations_dot)(C, g), None
+
+    @staticmethod
+    def jvp(ctx, dC, _):
+        (C,) = ctx.saved_tensors
+        with newton_diff_mode(ctx.diff_steps):
+            return torch.func.jvp(kabsch_rotations_quat, (C,), (dC,))[1]
+
+
+def kabsch_rotations_exact(C: torch.Tensor) -> torch.Tensor:
+    """Optimal rotations from float32 covariances C [B, 3, 3] through
+    kernel K6 on the card (its CPU kernel is the plain chain itself): equal
+    to every bit to :func:`.alignment.kabsch_rotations_quat` under the
+    current :func:`.alignment.newton_diff_mode`, forward and backward.
+    Another dtype raises."""
+    if C.dtype != torch.float32:
+        raise TypeError(f"K6 takes float32 covariances, got {C.dtype}")
+    return _KabschExact.apply(C, alignment.DEFAULT_NEWTON_DIFF_STEPS)
 
 
 def kabsch_rotations_cuda(C: torch.Tensor) -> torch.Tensor:

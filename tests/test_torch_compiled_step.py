@@ -94,18 +94,18 @@ def test_capture_takes_back_its_launches_and_each_replay_adds_them():
         _cuda.LAUNCHES["stats_fwd"] += 1
         _cuda.LAUNCHES["stats_bwd"] += 1
     assert held == {"kabsch_qcp": 0, "fused_align": 2, "stats_fwd": 1,
-                    "stats_bwd": 1, "pair_distances": 0}
+                    "stats_bwd": 1, "pair_distances": 0, "kabsch_exact": 0}
     # the capture ran nothing
     assert _cuda.launch_counts() == {"kabsch_qcp": 0, "fused_align": 7,
                                      "stats_fwd": 0, "stats_bwd": 0,
-                                     "pair_distances": 0}
+                                     "pair_distances": 0, "kabsch_exact": 0}
     graph = _FakeGraph()
     for _ in range(3):
         _cuda.replay(graph, held)
     assert graph.replays == 3
     assert _cuda.launch_counts() == {"kabsch_qcp": 0, "fused_align": 13,
                                      "stats_fwd": 3, "stats_bwd": 3,
-                                     "pair_distances": 0}
+                                     "pair_distances": 0, "kabsch_exact": 0}
     _cuda.reset_launch_counts()
 
 
@@ -122,7 +122,7 @@ def test_a_capture_carries_the_heads_counts_into_each_replay():
         logging_utils.count("cvf.heads.whole", 4)
         _cuda.LAUNCHES["fused_align"] += 1
     assert held == {"kabsch_qcp": 0, "fused_align": 1, "stats_fwd": 0,
-                    "stats_bwd": 0, "pair_distances": 0,
+                    "stats_bwd": 0, "pair_distances": 0, "kabsch_exact": 0,
                     "cvf.heads.split": 8, "cvf.heads.whole": 4}
     got = logging_utils.counters()
     assert got["cvf.heads.split"] == 0 and got["cvf.heads.whole"] == 4

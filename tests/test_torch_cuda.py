@@ -47,10 +47,12 @@ from colvarsfinder_tpu_torch import (
 from colvarsfinder_tpu_torch.core.losses import _gram_quadratic_form
 from colvarsfinder_tpu_torch.models import EigenFunctions, create_sequential_nn
 from colvarsfinder_tpu_torch.ops import _cuda
+from colvarsfinder_tpu_torch import logging_utils
 from colvarsfinder_tpu_torch.ops.alignment import (
     AlignmentLayer,
     align_frames,
     kabsch_rotations_quat,
+    newton_diff_mode,
 )
 from colvarsfinder_tpu_torch.ops.features import Lambda
 from colvarsfinder_tpu_torch.ops.fused_eigen import (
@@ -75,6 +77,7 @@ from colvarsfinder_tpu_torch.ops.kabsch_cuda import (
     align_resident_blocks,
     align_smem_bytes,
     fused_align_launch,
+    kabsch_exact_launch,
     kabsch_qcp_launch,
     kabsch_resident_blocks,
     kabsch_rotations_cuda,
@@ -142,6 +145,183 @@ def test_k1_backward_is_svd_autograd(dev):
     C2 = C.detach().requires_grad_()
     (g2,) = torch.autograd.grad((kabsch_rotations_quat(C2) ** 2 * C2).sum(), C2)
     torch.testing.assert_close(g, g2, rtol=1e-3, atol=1e-4)
+
+
+def _k6_covariances(B, seed):
+    """B seeded covariances of noisy frames, then the cases K6 must solve
+    as PyTorch does: zero and below the 1e-12 norm (the identity),
+    reflected (det < 0), rank 2, a nearly or exactly double top singular
+    value, and huge and tiny scales."""
+    x, ref, idx = _frames(B, 10, 10, seed=seed)
+    xc = x - x.mean(1, keepdims=True)
+    main = np.einsum("bmi,mj->bij", xc, ref)
+    rng = np.random.default_rng(seed + 1)
+    U, V = (np.linalg.qr(rng.standard_normal((64, 3, 3)))[0]
+            for _ in range(2))
+
+    def usv(svals):
+        s = np.asarray(svals)[np.arange(64) % len(svals)]
+        return np.einsum("bij,bj,bkj->bik", U, s, V)
+
+    cases = {
+        "zero and below 1e-12": np.concatenate(
+            [np.zeros((1, 3, 3)), 1e-13 * main[:8]]),
+        "reflected": -main[:64],
+        "rank 2": usv([(1.0, 0.5, 0.0), (2.0, 1e-3, 0.0)]),
+        "double top": usv([(1.0, 1.0 - e, 0.3) for e in (1e-4, 1e-6, 0.0)]),
+        "huge": 1e15 * main[:64],
+        "tiny": 1e-10 * main[:64],
+    }
+    return main.astype(np.float32), {k: v.astype(np.float32)
+                                     for k, v in cases.items()}
+
+
+@pytest.mark.parametrize("diff_steps", [0, 2])
+def test_k6_equals_the_plain_chain_bit_for_bit(dev, diff_steps):
+    """K6 (no FMA contraction, the chain's order) against the plain chain
+    run by PyTorch's kernels on the card: every bit, at B = 20,000 seeded
+    frames, one frame, a ragged 37 and each case of _k6_covariances, with
+    16 Newton steps plus the mode's extra ones; one launch a call, and
+    none for no frames."""
+    main, cases = _k6_covariances(20000, seed=6)
+    cases = {"B = 20,000": main, "B = 1": main[:1], "B = 37": main[:37],
+             **cases}
+    for what, C in cases.items():
+        C = torch.from_numpy(C).to(dev)
+        _cuda.reset_launch_counts()
+        got = kabsch_exact_launch(C, 16 + diff_steps)
+        assert _cuda.LAUNCHES["kabsch_exact"] == 1
+        with newton_diff_mode(diff_steps):
+            want = kabsch_rotations_quat(C)
+        torch.cuda.synchronize()
+        assert torch.isfinite(want).all(), what
+        bad = int((got != want).any(dim=(1, 2)).sum())
+        assert bad == 0, f"{what}: {bad} of {C.shape[0]} frames differ"
+    zero = kabsch_exact_launch(torch.zeros(1, 3, 3, device=dev), 16)
+    assert torch.equal(zero[0], torch.eye(3, device=dev))
+    _cuda.reset_launch_counts()
+    none = kabsch_exact_launch(torch.empty(0, 3, 3, device=dev), 16)
+    assert none.shape == (0, 3, 3) and _cuda.LAUNCHES["kabsch_exact"] == 0
+
+
+@pytest.mark.parametrize("diff_steps", [0, 2])
+def test_quaternion_layer_on_the_card_is_the_plain_chain(dev, diff_steps):
+    """AlignmentLayer(method='quaternion') on float32 frames: one K6 launch
+    a call, its values, input gradients and second derivatives (by the
+    parameters after it, as the generator loss takes them) equal to the
+    plain chain's (``align_frames``) bit for bit; float64 frames on the
+    card take the plain chain, with no launch."""
+    x, ref, idx = _frames(20000, 10, 10, seed=8)
+    x = torch.from_numpy(x).to(dev)
+    theta = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        (10, 3)).astype(np.float32)).to(dev)
+    layer = AlignmentLayer(ref, idx).to(dev)
+
+    def plain(xx):
+        return align_frames(xx, layer.ref_centered, layer.align_idx)
+
+    with newton_diff_mode(diff_steps):
+        logging_utils.reset_trace()
+        _cuda.reset_launch_counts()
+        out = layer(x)
+        assert _cuda.launch_counts() == {**dict.fromkeys(_cuda.KERNELS, 0),
+                                         "kabsch_exact": 1}
+        assert logging_utils.counters()["cvf.align.quat_kernel"] == 20000
+        assert torch.equal(out, plain(x))
+        grads = []
+        for f in (layer, plain):
+            xt = x.clone().requires_grad_()
+            (g,) = torch.autograd.grad((theta * torch.tanh(f(xt))).sum(), xt)
+            grads.append(g)
+        assert torch.equal(*grads)
+        _cuda.reset_launch_counts()
+        got = _second_order(layer, x, theta)
+        assert _cuda.LAUNCHES["kabsch_exact"] == 1
+        want = _second_order(plain, x, theta)
+        assert float(want.abs().max()) > 0
+        assert torch.equal(got, want)
+        layer64 = AlignmentLayer(ref, idx).to(dev, torch.float64)
+        _cuda.reset_launch_counts()
+        out64 = layer64(x.double())
+        assert sum(_cuda.launch_counts().values()) == 0
+        assert logging_utils.counters()["cvf.align.quat_plain"] == 20000
+        assert torch.equal(out64, align_frames(
+            x.double(), layer64.ref_centered, layer64.align_idx))
+    logging_utils.reset_trace()
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("diff_steps", [0, 2])
+def test_quaternion_layer_under_torch_func_is_k6(dev, diff_steps, weighted):
+    """Under ``torch.func.vmap`` (the samplers' chains, a sweep's replicas)
+    and ``jacrev`` the layer still solves float32 frames through K6, the
+    mapped dimension folded into one launch, with the plain chain's bits:
+    values, per-frame input Jacobians and their derivative by parameters
+    after the layer; 22 atoms with 10 align indices, weighted or not."""
+    x, ref, idx = _frames(4096, 22, 10, seed=14)
+    w = (np.random.default_rng(15).uniform(0.5, 2.0, 10).astype(np.float32)
+         if weighted else None)
+    layer = AlignmentLayer(ref, idx, align_weights=w).to(dev)
+    xs = torch.from_numpy(x).to(dev).reshape(8, 512, 22, 3)
+    theta = torch.from_numpy(np.random.default_rng(16).standard_normal(
+        (22, 3)).astype(np.float32)).to(dev)
+
+    def plain(xx):
+        if xx.dim() == 2:
+            return plain(xx[None])[0]
+        return align_frames(xx, layer.ref_centered, layer.align_idx,
+                            layer.align_weights)
+
+    def jac(f, th):
+        # per frame: d/dx sum th * tanh(f(x)), mapped over the frames
+        return torch.func.vmap(torch.func.jacrev(
+            lambda fr: (th * torch.tanh(f(fr))).sum()))(xs[0])
+
+    with newton_diff_mode(diff_steps):
+        logging_utils.reset_trace()
+        _cuda.reset_launch_counts()
+        out = torch.func.vmap(layer)(xs)
+        assert _cuda.launch_counts() == {**dict.fromkeys(_cuda.KERNELS, 0),
+                                         "kabsch_exact": 1}
+        assert logging_utils.counters()["cvf.align.quat_kernel"] == 512
+        assert torch.equal(out, torch.func.vmap(plain)(xs))
+        _cuda.reset_launch_counts()
+        got = jac(layer, theta)
+        assert _cuda.LAUNCHES["kabsch_exact"] == 1
+        want = jac(plain, theta)
+        assert float(want.abs().max()) > 0
+        assert torch.equal(got, want)
+        th = theta.clone().requires_grad_()
+        (g_got,) = torch.autograd.grad((jac(layer, th) ** 2).sum(), th)
+        (g_want,) = torch.autograd.grad((jac(plain, th) ** 2).sum(), th)
+        assert torch.equal(g_got, g_want)
+    logging_utils.reset_trace()
+
+
+def test_quaternion_layer_captured_equals_eager(dev):
+    """The layer's K6 launch captured in a CUDA graph: each replay equals
+    the eager call bit for bit, on new frames copied into the input."""
+    x, ref, idx = _frames(20000, 10, 10, seed=10)
+    layer = AlignmentLayer(ref, idx).to(dev)
+    static = torch.from_numpy(x).to(dev)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        layer(static)  # warm-up: loads K6
+        graph = torch.cuda.CUDAGraph()
+        with _cuda.capture_launches() as held:
+            with torch.cuda.graph(graph, stream=stream):
+                out = layer(static)
+    torch.cuda.current_stream().wait_stream(stream)
+    assert held["kabsch_exact"] == 1
+    assert held["cvf.align.quat_kernel"] == 20000
+    for seed in (11, 12):
+        static.copy_(torch.from_numpy(_frames(20000, 10, 10, seed)[0]))
+        _cuda.replay(graph, held)
+        torch.cuda.synchronize()
+        assert torch.equal(out, layer(static))
+        assert torch.equal(out, align_frames(static, layer.ref_centered,
+                                             layer.align_idx))
 
 
 @pytest.mark.parametrize("B", [37, 20000])
@@ -441,7 +621,7 @@ def _graph_frames():
 
 def _graph_task(path, kind, epochs, frames=None, **kw):
     """``fused``: FusedAlignmentLayer + fused_step (K2, K3, K4); ``plain``:
-    AlignmentLayer('quaternion'), no kernel; ``k1``: weighted
+    AlignmentLayer('quaternion') (K6); ``k1``: weighted
     AlignmentLayer('cuda') + fused_step (K1, K3, K4); ``precompute``:
     features computed once, then fused_step (K3, K4); ``svd``:
     AlignmentLayer('svd') + fused_step (K3, K4). ``frames`` replaces the
@@ -476,7 +656,8 @@ def _graph_task(path, kind, epochs, frames=None, **kw):
 
 def _schedule(kind, epochs):
     """Launches per wrapper over ``epochs``: every batch aligns X and X_l
-    (K2 or K1) and computes its stats (K3); every train step runs K4."""
+    (K2, K1, or K6 on the plain route) and computes its stats (K3); every
+    train step runs K4."""
     n = epochs * (G_TRAIN + G_TEST)
     want = dict.fromkeys(_cuda.LAUNCHES, 0)
     if kind != "plain":
@@ -485,6 +666,8 @@ def _schedule(kind, epochs):
         want["fused_align"] = 2 * n
     if kind == "k1":
         want["kabsch_qcp"] = 2 * n
+    if kind == "plain":
+        want["kabsch_exact"] = 2 * n
     return want
 
 
@@ -1253,10 +1436,10 @@ def test_streamed_runs_equal_resident_runs(dev, tmp_path, kind):
     if kind == "fused":
         assert streamed._stream_graphs["train"].launches == {
             "kabsch_qcp": 0, "fused_align": 2, "stats_fwd": 1,
-            "stats_bwd": 1, "pair_distances": 0}
+            "stats_bwd": 1, "pair_distances": 0, "kabsch_exact": 0}
         assert streamed._stream_graphs["test"].launches == {
             "kabsch_qcp": 0, "fused_align": 2, "stats_fwd": 1,
-            "stats_bwd": 0, "pair_distances": 0}
+            "stats_bwd": 0, "pair_distances": 0, "kabsch_exact": 0}
     # a second call replays the same step graphs
     graphs = dict(streamed._stream_graphs)
     assert _train(streamed, 2) == _train(resident, 2) == _schedule(kind, 2)

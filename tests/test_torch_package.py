@@ -67,15 +67,20 @@ def test_no_source_names_jax_or_the_jax_package():
 
 def test_kernel_sources_ship_with_the_package():
     names = sorted(p.name for p in (PKG / "csrc").iterdir())
-    assert names == ["fused_eigen.cu", "kabsch.cu", "pair_distances.cu",
-                     "qcp.cuh"]
-    assert set(_cuda.SOURCES) == {"kabsch", "fused_eigen", "pair_distances"}
+    assert names == ["fused_eigen.cu", "kabsch.cu", "kabsch_exact.cu",
+                     "pair_distances.cu", "qcp.cuh"]
+    assert set(_cuda.SOURCES) == {"kabsch", "fused_eigen", "pair_distances",
+                                  "kabsch_exact"}
     # built beside the package, in a directory git ignores
     assert _cuda.BUILD_DIR == REPO / "build" / "cvf_torch_kernels"
     assert "build/" in (REPO / ".gitignore").read_text().split()
     # sm_90a, full-precision float32 math
     assert "arch=compute_90a,code=sm_90a" in _cuda.NVCC_FLAGS
     assert not any("fast" in flag for flag in _cuda.NVCC_FLAGS)
+    # K6 alone is built without FMA contraction, K1 and K2 keep theirs
+    assert _cuda._flags("kabsch_exact") == _cuda.NVCC_FLAGS + ("-fmad=false",)
+    assert _cuda._flags("kabsch") == _cuda.NVCC_FLAGS
+    assert "-fmad=false" not in _cuda.NVCC_FLAGS
     for src in (PKG / "csrc").glob("*.cu"):
         text = src.read_text()
         assert "atomicAdd(" not in text  # fixed-order reductions only

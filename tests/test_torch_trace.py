@@ -136,7 +136,7 @@ def test_launch_counts_are_counters():
     logging_utils.count(_cuda.COUNTER + "fused_align", 3)
     assert _cuda.launch_counts() == {"kabsch_qcp": 0, "fused_align": 3,
                                      "stats_fwd": 2, "stats_bwd": 0,
-                                     "pair_distances": 0}
+                                     "pair_distances": 0, "kabsch_exact": 0}
     assert logging_utils.counters()["cvf.kernel.launches.stats_fwd"] == 2
     _cuda.reset_launch_counts()
     assert dict(_cuda.LAUNCHES) == dict.fromkeys(_cuda.KERNELS, 0)
