@@ -208,6 +208,7 @@ beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import gc
 import json
@@ -451,6 +452,15 @@ KERNELS = {
     "kabsch_exact": ("colvarsfinder_tpu_torch/csrc/kabsch_exact.cu",
                      "colvarsfinder_tpu/ops/alignment.py:102"),
 }
+
+
+def eager_twin(on: bool = True, blocks=None):
+    """Every captured program run eagerly inside, when ``on``: a captured
+    run's eager twin (``graphs.eager``; ``blocks=m`` also stops a sampler
+    after m report blocks)."""
+    from colvarsfinder_tpu_torch import graphs
+
+    return graphs.eager(blocks) if on else contextlib.nullcontext()
 
 
 def log(*a):
@@ -930,13 +940,12 @@ def phase_training(ref, traj_np, w_np, cvf):
                              save_every=epochs if label == "plain" else 0,
                              align_weights=(ALIGN_WEIGHTS if "k1" in label
                                             else None))
-            # the comparison run: every epoch eager (a private switch that
-            # nothing in the package sets)
-            task._eager_on_card = label == "fused eager"
             torch.cuda.synchronize()
             _cuda.reset_launch_counts()
             t0 = time.perf_counter()
-            task.train()
+            # the comparison run: every epoch eager
+            with eager_twin(label == "fused eager"):
+                task.train()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             counts = _cuda.launch_counts()
@@ -955,9 +964,9 @@ def phase_training(ref, traj_np, w_np, cvf):
                                rows=loss_rows(task),
                                params=[p.detach().clone()
                                        for p in task.model.parameters()])
-            if (task._graph is None) != (label == "fused eager"):
+            if (not task._graphs) != (label == "fused eager"):
                 raise AssertionError(f"{label}: captured graph "
-                                     f"{task._graph is not None}")
+                                     f"{bool(task._graphs)}")
             log(f"  {label:11s}: {epochs} epochs in {wall:.2f} s, loss "
                 f"{loss[0]:.5f} -> {loss[-1]:.5f}, eig_1 "
                 f"{task.train_loss[-1, 3]:.4f}; launches {counts}")
@@ -1243,7 +1252,6 @@ def phase_dirichlet(card, ref, traj_np, w_np, cvf):
                 label = kind + (" eager" if eager else "")
                 task = make_dirichlet(cvf, kind, traj_obj, ref,
                                       f"{tmp}/{label}", EPOCHS, regions)
-                task._eager_on_card = eager
                 torch.cuda.synchronize()
                 _cuda.reset_launch_counts()
                 t0 = time.perf_counter()
@@ -1253,7 +1261,8 @@ def phase_dirichlet(card, ref, traj_np, w_np, cvf):
                 prep_counts = _cuda.launch_counts()
                 _cuda.reset_launch_counts()
                 t0 = time.perf_counter()
-                task.train()
+                with eager_twin(eager):
+                    task.train()
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 counts = _cuda.launch_counts()
@@ -1263,9 +1272,9 @@ def phase_dirichlet(card, ref, traj_np, w_np, cvf):
                 if not tl[-1, 0] < tl[0, 0]:
                     raise AssertionError(f"{label}: loss did not fall: "
                                          f"{tl[:, 0]}")
-                if (task._graph is None) != eager:
+                if (not task._graphs) != eager:
                     raise AssertionError(f"{label}: captured graph "
-                                         f"{task._graph is not None}")
+                                         f"{bool(task._graphs)}")
                 if task._gram != (not kind.endswith("vjp")):
                     raise AssertionError(f"{label}: Gram path {task._gram}")
                 nb = len(data[0]) + len(data[1])
@@ -1385,7 +1394,6 @@ def run_ae(cvf, card, kind, traj_obj, ref, path, epochs, eager=False,
     _cuda.reset_launch_counts()
     t0 = time.perf_counter()
     task = make_ae(cvf, kind, traj_obj, ref, path, epochs, **kw)
-    task._eager_on_card = eager
     if kind != "ae":
         record_sort_decisions(task)
     torch.cuda.synchronize()
@@ -1397,7 +1405,8 @@ def run_ae(cvf, card, kind, traj_obj, ref, path, epochs, eager=False,
     prep_counts = _cuda.launch_counts()
     _cuda.reset_launch_counts()
     t0 = time.perf_counter()
-    task.train()
+    with eager_twin(eager):
+        task.train()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _cuda.launch_counts()
@@ -1406,9 +1415,9 @@ def run_ae(cvf, card, kind, traj_obj, ref, path, epochs, eager=False,
         raise AssertionError(f"{label}: non-finite training metrics")
     if epochs > 2 and not tl[-1, 0] < tl[0, 0]:
         raise AssertionError(f"{label}: loss did not fall: {tl[:, 0]}")
-    if (task._graph is None) != eager:
+    if (not task._graphs) != eager:
         raise AssertionError(f"{label}: captured graph "
-                             f"{task._graph is not None}")
+                             f"{bool(task._graphs)}")
     nb = len(data[0]) + len(data[1])
     steady = statistics.median(task.epoch_times[2:] or task.epoch_times)
     gram = getattr(task, "_gram", False)
@@ -1956,7 +1965,7 @@ def phase_sweep(card, ref, traj_np, w_np, cvf, runs):
             train_hyperparameter_sweep(task, grid, **kw)
             first_s = time.perf_counter() - t0
             reps = next(reversed(ensemble._SWEEPS.values()))
-            graph = reps.graph
+            graph = reps.graphs["epoch"]
             torch.cuda.synchronize()
             _cuda.reset_launch_counts()
             t0 = time.perf_counter()
@@ -1964,7 +1973,7 @@ def phase_sweep(card, ref, traj_np, w_np, cvf, runs):
             wall = time.perf_counter() - t0
             counts = _cuda.launch_counts()
             device_s = ensemble.last_run_seconds
-            if reps.graph is not graph:
+            if reps.graphs["epoch"] is not graph:
                 raise AssertionError(f"{label}: the second call captured "
                                      "again")
             check_untouched(label, task, before)
@@ -1985,7 +1994,7 @@ def phase_sweep(card, ref, traj_np, w_np, cvf, runs):
             for r in res:
                 if not np.isfinite(r.train_loss).all():
                     raise AssertionError(f"{label}: non-finite metrics")
-            k2_epoch = reps.graph.launches["fused_align"]
+            k2_epoch = reps.graphs["epoch"].launches["fused_align"]
             row = dict(
                 aggregate_samples_per_s=samples / wall,
                 device_window_samples_per_s=samples / device_s,
@@ -2048,14 +2057,15 @@ def phase_sweep(card, ref, traj_np, w_np, cvf, runs):
         ensemble.release_sweeps()
         cap = train_hyperparameter_sweep(btask, sub, models=models[:n])
         reps = next(reversed(ensemble._SWEEPS.values()))
-        eager = train_hyperparameter_sweep(btask, sub, models=models[:n],
-                                           _eager=True)
+        with eager_twin():
+            eager = train_hyperparameter_sweep(btask, sub,
+                                               models=models[:n])
         same = all(np.array_equal(a.train_loss, b.train_loss)
                    and np.array_equal(a.test_loss, b.test_loss)
                    and all(torch.equal(a.model[k], b.model[k])
                            for k in a.model)
                    for a, b in zip(cap, eager))
-        k2_narrow = reps.graph.launches["fused_align"]
+        k2_narrow = reps.graphs["epoch"].launches["fused_align"]
         log(f"  R={n} sweep, captured vs eager, {SWEEP_EPOCHS} epochs: every "
             f"replica's curves and final parameters bit for bit equal: "
             f"{same}; K2 per captured epoch {k2_narrow} (R={R}: "
@@ -2411,14 +2421,14 @@ def phase_streaming(card, ref, traj_np, w_np, cvf, runs):
         ):
             task = make_task(cvf, traj_obj, ref, f"{tmp}/{label}", fused,
                              method, EPOCHS, streaming=True)
-            task._eager_on_card = eager
-            r = train(task, f"streamed {label}")
+            with eager_twin(eager):
+                r = train(task, f"streamed {label}")
             resident = runs["plain" if method == "quaternion" else "fused"]
             rows = loss_rows(task)
             same = np.array_equal(rows, resident["rows"]) and all(
                 torch.equal(a, b) for a, b in zip(task.model.parameters(),
                                                   resident["params"]))
-            graphs = sorted(task._stream_graphs)
+            graphs = sorted(task._graphs)
             log(f"  streamed {label:11s} ({EPOCHS} epochs of phase 4's "
                 f"frames, {r['wall']:.2f} s, step graphs {graphs}): every "
                 f"batch's metric row and every final parameter bit for bit "
@@ -2634,9 +2644,7 @@ def phase_mesh(card, ref, traj_np, w_np, cvf, runs, sweep, sweep_b):
                         launches[name] += n
                 if not np.isfinite(task.train_loss).all():
                     raise AssertionError(f"{label}: non-finite metrics")
-                captured = (task._stream_graphs if "streamed" in label
-                            else task._graph)
-                if not captured:
+                if not task._graphs:
                     raise AssertionError(f"{label}: nothing captured")
                 nb_train = len(task._prepare_data()[2])
                 nb_test = len(task._prepare_data()[3])
@@ -2847,7 +2855,7 @@ def sampler_run(label, call, blocks, chains, steps, prefix, card,
     the arrays of its first ``m`` report (or deposition) blocks. The call is
     timed: chain-steps/s over its wall time, and over the wall time less
     the seconds ``writer(res)`` gives for the output files. Its eager twin
-    (``_eager_blocks``, with ``twin_over``) must equal the first
+    (``eager_twin(blocks=...)``, with ``twin_over``) must equal the first
     ``twin_blocks`` blocks bit for bit. A short call with ``short_over``
     (``short_blocks`` blocks), timed, splits the call's time into a fixed
     part and a steady time per block. A call with ``profile_over`` (by
@@ -2871,7 +2879,8 @@ def sampler_run(label, call, blocks, chains, steps, prefix, card,
             raise AssertionError(f"{label}: non-finite {name}")
     stages = {}
     t0 = time.perf_counter()
-    twin = call(_eager_blocks=twin_blocks, **(twin_over or {}))
+    with eager_twin(blocks=twin_blocks):
+        twin = call(**(twin_over or {}))
     stages["eager twin"] = time.perf_counter() - t0
     got, want = prefix(res, twin_blocks), prefix(twin, twin_blocks)
     same = all(np.array_equal(a, b) for a, b in zip(got, want))
@@ -3392,7 +3401,7 @@ def phase_md_input(card, cvf):
                                      f"schedule implies {want}")
             if not np.isfinite(task.train_loss).all():
                 raise AssertionError(f"{label}: non-finite metrics")
-            if task._graph is None:
+            if "epoch" not in task._graphs:
                 raise AssertionError(f"{label}: no captured epoch")
             steady = statistics.median(task.epoch_times[2:])
             sps = nb_train * BATCH / steady
@@ -3759,15 +3768,16 @@ def mesh_twins(label, call, chains, steps, blocks, mesh, card, short_over,
     """Phase 15's measurements of one sampler: ``call(**over)`` unmeshed
     and with ``mesh=`` (the same seed), each timed; every array of the two
     results, and the files they wrote under ``tmp``, bit for bit equal; K2
-    launches and graph replays (``_cuda.replay`` calls) of the meshed call
+    launches and graph replays (``graphs.replay`` calls) of the meshed call
     over its ``blocks`` blocks. A short meshed call with ``short_over``
     under torch.profiler: NCCL's kernels and the device copies of its one
     final all-gather (and its ``exchanges`` exchange blocks' all-gathers).
     With exchanges, the same short call unmeshed too: what the mesh adds
     (device copies, activities and device time), per exchange."""
+    from colvarsfinder_tpu_torch import graphs
     from colvarsfinder_tpu_torch.ops import _cuda
 
-    replay, replays = _cuda.replay, [0]
+    replay, replays = graphs.replay, [0]
 
     def counted(graph, launches):
         replays[0] += 1
@@ -3779,13 +3789,13 @@ def mesh_twins(label, call, chains, steps, blocks, mesh, card, short_over,
             over["sampling_output_path"] = f"{tmp}/{label}-{tag}"
         torch.cuda.synchronize()
         _cuda.reset_launch_counts()
-        _cuda.replay = counted if tag == "meshed" else replay
+        graphs.replay = counted if tag == "meshed" else replay
         try:
             t0 = time.perf_counter()
             res = call(**over)
             torch.cuda.synchronize()
         finally:
-            _cuda.replay = replay
+            graphs.replay = replay
         got[tag] = (res, time.perf_counter() - t0, _cuda.launch_counts())
     a, b = (result_arrays(got[t][0]) for t in ("unmeshed", "meshed"))
     same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
@@ -3993,7 +4003,8 @@ def phase_mesh_samplers(card, ref, traj_np, runs, cvf):
         # block's graph) against the same blocks run eagerly
         m = 2 * eeb + 1
         t0 = time.perf_counter()
-        twin = remd(mesh=mesh, _eager_blocks=m)
+        with eager_twin(blocks=m):
+            twin = remd(mesh=mesh)
         row["eager_twin_s"] = time.perf_counter() - t0
         same = (np.array_equal(twin.frames[:, :m], rem.frames[:, :m])
                 and np.array_equal(twin.swap_history[:m],

@@ -54,7 +54,6 @@ epoch.
 
 from __future__ import annotations
 
-import gc
 import inspect
 import math
 import os
@@ -62,17 +61,16 @@ import time
 import warnings
 from abc import ABCMeta, abstractmethod
 from collections import deque
-from typing import NamedTuple, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from .. import checkpoint
+from .. import checkpoint, graphs
 from ..config import default_dtype, numerics_key, resolve_device
 from ..export import export_colvar
 from ..logging_utils import MetricsWriter, profile_trace, span
-from ..ops import _cuda
 from ..ops.features import Identity
 from ..parallel.collectives import all_reduce_grads, gather_rows
 from ..parallel.mesh import (
@@ -83,7 +81,7 @@ from ..parallel.mesh import (
 )
 from .streaming import GatherPool, StreamIO
 
-__all__ = ["TrainingTask", "capture_epoch", "train_test_split"]
+__all__ = ["TrainingTask", "train_test_split"]
 
 
 def numpy_dtype() -> np.dtype:
@@ -110,62 +108,6 @@ def train_test_split(idx: np.ndarray, test_size: float, seed: int):
         )
     perm = np.random.RandomState(seed).permutation(n)
     return idx[perm[n_test:]], idx[perm[:n_test]]
-
-
-class CapturedEpoch(NamedTuple):
-    """One training epoch captured as a CUDA graph.
-
-    ``key`` is :meth:`TrainingTask._graph_key` at capture; ``held`` keeps
-    alive every object whose ``id`` is in it, so no other object can take
-    that ``id`` while the graph lives. ``launches`` counts the kernel
-    launches the graph holds (:func:`..ops._cuda.capture_launches`)."""
-
-    graph: object
-    launches: dict
-    key: tuple
-    held: list
-
-
-def capture_epoch(body, device, key_fn,
-                  what: str = "the training epoch") -> CapturedEpoch:
-    """Run ``body()`` once eagerly on a side stream (a real epoch, which
-    also creates the optimizer's state, the cuBLAS handles and the kernel
-    libraries), then capture it as a CUDA graph on that stream with its
-    kernel launches counted; ``key_fn()`` gives the ``(key, held)`` of the
-    result after the eager epoch. A capture that fails raises, naming
-    ``what`` was captured: nothing falls back to eager on the card. The
-    samplers capture their integration blocks with it too
-    (:mod:`..utils.sampling`).
-
-    Python's cyclic garbage collector is run before the capture and held
-    off during it: a graph that died in a reference cycle would otherwise
-    be destroyed whenever the collector runs, and destroying a graph
-    invalidates a capture in progress.
-
-    The eager epoch and the capture are one ``cvf.graph.capture`` span."""
-    with span("cvf.graph.capture", what=what):
-        current = torch.cuda.current_stream(device)
-        stream = torch.cuda.Stream(device)
-        stream.wait_stream(current)
-        with torch.cuda.stream(stream):
-            body()
-        key, held = key_fn()
-        graph = torch.cuda.CUDAGraph()
-        gc.collect()
-        gc.disable()
-        try:
-            with _cuda.capture_launches() as launches, \
-                    torch.cuda.graph(graph, stream=stream):
-                body()
-        except RuntimeError as err:
-            raise RuntimeError(
-                f"capturing {what} as a CUDA graph failed (a host sync or a "
-                f"call that capture forbids inside it?): {err}"
-            ) from err
-        finally:
-            gc.enable()
-        current.wait_stream(stream)
-    return CapturedEpoch(graph, launches, key, held)
 
 
 class _Traced(ABCMeta):
@@ -249,12 +191,8 @@ class TrainingTask(metaclass=_Traced):
       time of each stage in :attr:`stream_stats`.
     """
 
-    #: the prepared batches (:meth:`_prepare_data`) and the captured epoch
+    #: the prepared batches (:meth:`_prepare_data`)
     _prepared = None
-    _graph: Optional[CapturedEpoch] = None
-    #: run every epoch eagerly on the card too; nothing in the package sets
-    #: it (a test compares a captured run with an eager one through it)
-    _eager_on_card = False
     #: the Gram path stores one [B, d_r, d_r] tensor per batch; above this
     #: total it falls back to the vjp path (the JAX package's limit)
     GRAM_AUTO_LIMIT_BYTES = 4 << 30
@@ -340,9 +278,9 @@ class TrainingTask(metaclass=_Traced):
         self.progress_interval = int(progress_interval)
         self.epoch_times: list = []
         self.model_name = type(self).__name__
-        # the streaming layout's step graphs by kind ('train', 'test') and
-        # its buffers (_stream_ios)
-        self._stream_graphs: dict = {}
+        # the captured epoch ('epoch') or the streamed steps ('train',
+        # 'test'), and the streaming layout's buffers (_stream_ios)
+        self._graphs = graphs.Graphs(self.device, self._graph_key)
         self._stream_io = None
 
         if self.verbose:
@@ -580,40 +518,22 @@ class TrainingTask(metaclass=_Traced):
         """Forget the captured epoch (or streamed steps). Its memory pool is
         freed with the graph and the gradients the graph left on the
         parameters."""
-        if self._graph is not None or self._stream_graphs:
-            self._graph = None
-            self._stream_graphs = {}
+        if self._graphs.drop():
             self.model.zero_grad(set_to_none=True)
 
     def _check_graph(self) -> None:
         """Drop the captured epoch (or streamed steps) if anything it
         depends on has changed."""
-        graphs = list(self._stream_graphs.values())
-        if self._graph is not None:
-            graphs.append(self._graph)
-        if graphs:
-            key = self._graph_key()[0]
-            if any(g.key != key for g in graphs):
-                self._drop_graph()
+        if self._graphs.check():
+            self.model.zero_grad(set_to_none=True)
 
     def _run_epoch(self, body, epoch: int) -> None:
-        """Epoch ``epoch`` of ``body()``, one ``cvf.epoch.issue`` span. The
-        CPU runs it eagerly. The card replays its captured graph (the span
-        has ``replay=True``); without one, it runs ``body()`` eagerly on the
-        capture stream (a real epoch, which also initialises Adam's state,
-        the cuBLAS handles and the kernel libraries) and then captures it.
-        A capture that fails raises: nothing falls back to eager on the
-        card."""
-        eager = self.device.type != "cuda" or self._eager_on_card
-        graph = None if eager else self._graph
-        with span("cvf.epoch.issue", epoch=epoch, replay=graph is not None):
-            if eager:
-                body()
-            elif graph is not None:
-                _cuda.replay(graph.graph, graph.launches)
-            else:
-                self._graph = capture_epoch(body, self.device,
-                                            self._graph_key)
+        """Epoch ``epoch`` of ``body()``, run eagerly, replayed or captured
+        (:meth:`..graphs.Graphs.run`): one ``cvf.epoch.issue`` span, with
+        ``replay=True`` for a replay."""
+        replay = self._graphs.mode("epoch") == "replay"
+        with span("cvf.epoch.issue", epoch=epoch, replay=replay):
+            self._graphs.run("epoch", body)
 
     def release_device_data(self) -> None:
         """Drop the prepared device batches and the captured epoch with its
@@ -888,9 +808,8 @@ class TrainingTask(metaclass=_Traced):
 
     def _stream_step(self, io, train: bool) -> None:
         """One streamed step on ``io``'s inputs, its metric row in
-        ``io.row``. On the card a step kind's first call in a task without
-        a valid graph runs eagerly and is captured (:func:`capture_epoch`);
-        every later one replays the graph."""
+        ``io.row``, run eagerly, replayed or captured by its kind
+        (:meth:`..graphs.Graphs.run`)."""
         def body():
             batch = io.batch()
             if train:
@@ -899,16 +818,7 @@ class TrainingTask(metaclass=_Traced):
                 with torch.no_grad():
                     io.row.copy_(self._batch_metrics(*batch)[1])
 
-        kind = "train" if train else "test"
-        graph = self._stream_graphs.get(kind)
-        if self.device.type != "cuda" or self._eager_on_card:
-            body()
-        elif graph is not None:
-            _cuda.replay(graph.graph, graph.launches)
-        else:
-            self._stream_graphs = {
-                **self._stream_graphs,
-                kind: capture_epoch(body, self.device, self._graph_key)}
+        self._graphs.run("train" if train else "test", body)
 
     def _stream_epochs(self, chunk: int, train_b, test_b, rows):
         """Run ``chunk`` epochs with the data on the host: the counterpart

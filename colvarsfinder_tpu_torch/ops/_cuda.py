@@ -12,11 +12,8 @@ ablations, exactness checks against a variant).
 Each wrapper counts its launches on the host, in the recorder's counter
 ``cvf.kernel.launches.<name>`` (:func:`..logging_utils.count`);
 :func:`launch_counts` and :data:`LAUNCHES` read them. A CUDA graph replay
-runs no Python, so a capture is taken inside :func:`capture_launches`,
-which records what the graph holds and takes it back out of the counts,
-and every replay goes through :func:`replay`, which adds it. The same
-holds for the recorder's other counters, such as the stacked heads' split
-and whole layer products and the feature layer's pair distances.
+runs no Python: :mod:`..graphs` carries the counts a graph holds into its
+replays.
 
 Nothing here runs at import: the CPU tests import every module of the
 package on machines without ``nvcc``.
@@ -24,7 +21,6 @@ package on machines without ``nvcc``.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -43,11 +39,9 @@ __all__ = [
     "LAUNCHES",
     "build_all",
     "build_copies",
-    "capture_launches",
     "check",
     "launch_counts",
     "library",
-    "replay",
     "reset_launch_counts",
     "stream_handle",
 ]
@@ -133,42 +127,6 @@ def reset_launch_counts() -> None:
 def launch_counts() -> dict:
     now = counters()
     return {name: now.get(COUNTER + name, 0) for name in KERNELS}
-
-
-@contextlib.contextmanager
-def capture_launches():
-    """Around a CUDA graph capture: yields a dict that is filled, on exit,
-    with the launches each wrapper counted inside (the launches the graph
-    holds), and takes them back out of :data:`LAUNCHES`, since a capture
-    runs nothing. Every other counter of the recorder that moved inside
-    (the stacked heads' ``cvf.heads.split`` and ``cvf.heads.whole``, the
-    feature layer's ``cvf.features.pairs_grouped`` and
-    ``cvf.features.pairs_single``) is taken back out the same way and held
-    under its full name."""
-    before = counters()
-    held: dict = {}
-    try:
-        yield held
-    finally:
-        after = counters()
-        for name in KERNELS:
-            n = after.get(COUNTER + name, 0) - before.get(COUNTER + name, 0)
-            held[name] = n
-            count(COUNTER + name, -n)
-        for name, v in after.items():
-            n = v - before.get(name, 0)
-            if n and not name.startswith(COUNTER):
-                held[name] = n
-                count(name, -n)
-
-
-def replay(graph, launches: dict) -> None:
-    """Replay a captured graph and count the kernel launches and the other
-    counts it holds (``launches``, from :func:`capture_launches`)."""
-    graph.replay()
-    for name, n in launches.items():
-        if n:
-            count(COUNTER + name if name in KERNELS else name, n)
 
 
 def _nvcc() -> str:

@@ -12,7 +12,7 @@ replicas' parameters are disjoint, so each gets exactly its own gradient),
 and a replica-stacked Adam or SGD (:class:`_ReplicaOptimizer`) steps them
 with a learning rate per replica. Every matmul of the model is batched
 R-fold. On the card each epoch is one captured CUDA graph, as a solo task's
-is (:func:`..core.task.capture_epoch`); the metric rows, parameters and
+is (:class:`..graphs.Graphs`); the metric rows, parameters and
 optimizer state reach the host in one transfer per call.
 
 What the replicas share is computed once per batch, outside the map
@@ -64,8 +64,8 @@ from torch.func import functional_call, vmap
 
 from .. import config as _cfg
 from ..config import default_dtype, numerics_key
+from ..graphs import Graphs
 from ..logging_utils import losses_to_dataframe, span
-from ..ops import _cuda
 from .mesh import mesh_coords
 
 __all__ = [
@@ -312,7 +312,7 @@ class _Replicas:
         frozen = t0._frozen_prefix()
         self.frozen = [p for n, p in zip(self.names, self.params)
                        if frozen and n.startswith(frozen)]
-        self.graph = None
+        self.graphs = Graphs(self.device)
 
     def loss(self, inputs):
         """Every replica's ``(loss, row)`` on the shared ``inputs``."""
@@ -369,15 +369,7 @@ class _Replicas:
                    for j in range(len(self.test[0]))]
         torch.stack(ms, dim=1, out=self.rows)
 
-    def _key(self):
-        """The captured epoch's ``(key, held)``: the stacked tensors and
-        the optimizer state by identity, as a solo task's graph key holds
-        its own (:meth:`..core.task.TrainingTask._graph_key`)."""
-        held = [self.params, self.hyper, self.lr, self.rows,
-                *self.opt.state_tensors()]
-        return tuple(map(id, held)), held
-
-    def run(self, epochs: int, eager: bool = False, mesh=None):
+    def run(self, epochs: int, mesh=None):
         """``epochs`` epochs; returns the host copies of the metric rows
         [epochs, R, nb, width], the parameters and the optimizer state
         (:meth:`_ReplicaOptimizer.state_tensors`), fetched in one
@@ -387,23 +379,16 @@ class _Replicas:
         buffer and concatenated along the replica axis in rank order:
         [epochs, W R, nb, width] etc."""
         global last_run_seconds
-        # imported here: the task module imports this package (the mesh)
-        from ..core.task import capture_epoch
-
         all_rows = torch.empty((epochs,) + tuple(self.rows.shape),
                                dtype=self.rows.dtype, device=self.device)
-        eager = self.device.type != "cuda" or eager
         first = 0
-        if epochs and not eager and self.graph is None:
-            self.graph = capture_epoch(self.epoch, self.device, self._key)
+        if epochs and self.graphs.mode("epoch") == "capture":
+            self.graphs.run("epoch", self.epoch)
             all_rows[0].copy_(self.rows)
             first = 1
         with span("cvf.sweep.run", epochs=epochs - first) as timed:
             for e in range(first, epochs):
-                if eager:
-                    self.epoch()
-                else:
-                    _cuda.replay(self.graph.graph, self.graph.launches)
+                self.graphs.run("epoch", self.epoch)
                 all_rows[e].copy_(self.rows)
             tensors = [all_rows, *self.params, *self.opt.state_tensors()]
             with torch.no_grad():  # step counts are exact in either dtype
@@ -658,7 +643,6 @@ def release_sweeps() -> None:
 def train_hyperparameter_sweep(
     task, grid: dict, models=None, chunk_size: int | None = None, mesh=None,
     compute_dtype: str | None = None, bf16_style: str | None = None,
-    _eager: bool = False,
 ) -> list:
     """Train R hyperparameter variants of ``task`` as one replica program
     on the task's own batches, shared by every replica
@@ -717,11 +701,11 @@ def train_hyperparameter_sweep(
             idx = list(range(lo, hi)) + [hi - 1] * (width - (hi - lo))
             sub = {k: [list(v)[i] for i in idx] for k, v in grid.items()}
             subm = None if models is None else [models[i] for i in idx]
-            out += _sweep(task, sub, subm, _eager, mesh, mine)[:hi - lo]
+            out += _sweep(task, sub, subm, mesh, mine)[:hi - lo]
         return out
 
 
-def _sweep(task, grid: dict, models, eager: bool, mesh, mine: slice) -> list:
+def _sweep(task, grid: dict, models, mesh, mine: slice) -> list:
     """The R results of ``grid``; this rank trains the replicas ``mine``
     of them (all of them without a mesh). Stacking the replicas is one
     ``cvf.sweep.load`` span, building the R results one
@@ -741,7 +725,7 @@ def _sweep(task, grid: dict, models, eager: bool, mesh, mine: slice) -> list:
         reps = _sweep_replicas(task, len(local))
         reps.load((models or [task.model] * R)[mine],
                   {name: v[mine] for name, v in hypers.items()}, lrs[mine])
-    rows, params, state = reps.run(task.num_epochs, eager, mesh)
+    rows, params, state = reps.run(task.num_epochs, mesh)
     with span("cvf.sweep.unpack", replicas=R):
         template = task.optimizer.state_dict()
         n = len(task.loss_names)

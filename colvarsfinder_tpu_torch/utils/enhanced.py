@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from ..config import default_dtype, resolve_device
+from ..graphs import report_blocks
 from ..parallel.collectives import all_gather_rows
 from ..parallel.mesh import mesh_coords, shared_seed
 from . import sampling as _sampling
@@ -456,7 +457,7 @@ def _metad_scan(energy, cv_fn, x, noise, run, step_size, beta, hill_height,
         rec.write("s", s)
         rec.advance()
 
-    for i in range(run.n_reports(n_hills)):
+    for i in range(report_blocks(n_hills)):
         run.block("main", lambda i=i: noise.normal(buf, "main", i), block)
         rec.end_block()
     return rec.result(), centers.cpu().numpy(), heights.cpu().numpy()
@@ -479,7 +480,6 @@ def integrate_sde_metadynamics(
     mesh=None,
     verbose: bool = True,
     device=None,
-    _eager_blocks: Optional[int] = None,
 ) -> MetadynamicsResult:
     """Metadynamics along a (learned) CV (``enhanced.py:294-464``).
 
@@ -531,7 +531,7 @@ def integrate_sde_metadynamics(
     rec, centers, heights = _metad_scan(
         _sampling._energy_fn(pot_obj), _cv_fn(cv_model),
         _chains(X0[rows], dev), _rank_noise(noise, mesh, rows, n_chains),
-        _Blocks(dev, _eager_blocks), step_size, beta,
+        _Blocks(dev), step_size, beta,
         _f32(hill_height), wt_denom, _f32(1.0 / (2.0 * hill_width**2)),
         int(n_hills), int(deposit_interval), int(pre_steps),
         bias_factor is not None,
@@ -887,7 +887,6 @@ def integrate_sde_umbrella(
     mesh=None,
     verbose: bool = True,
     device=None,
-    _eager_blocks: Optional[int] = None,
 ) -> UmbrellaResult:
     """Umbrella sampling along a (learned) CV, all K windows as one chain
     batch (``enhanced.py:745-917``).
@@ -964,7 +963,7 @@ def integrate_sde_umbrella(
     n_reports = (n_steps - 1) // report_interval + 1
     rec = _sampling._em_scan(
         lambda xx: _batch_grad(biased_v, xx), x,
-        _rank_noise(noise, mesh, rows, K), _Blocks(dev, _eager_blocks),
+        _rank_noise(noise, mesh, rows, K), _Blocks(dev),
         step_size, float(_sampling._noise_scale(step_size, beta)),
         int(report_interval), int(n_reports), int(pre_steps),
     )
@@ -1169,7 +1168,7 @@ def _steered_scan(energy, cv_fn, x, noise, run, step_size, beta, c0, c1,
         rec.write("c", center(step_no))
         rec.advance()
 
-    for i in range(run.n_reports(n_reports)):
+    for i in range(report_blocks(n_reports)):
         run.block("main", lambda i=i: noise.normal(buf, "main", i), block)
         rec.end_block()
     return rec.result()
@@ -1191,7 +1190,6 @@ def integrate_sde_steered(
     mesh=None,
     verbose: bool = True,
     device=None,
-    _eager_blocks: Optional[int] = None,
 ) -> SteeredResult:
     """Steered pulling along a (learned) CV with Jarzynski work accounting,
     all M realizations as one chain batch (``enhanced.py:1092-1264``).
@@ -1281,7 +1279,7 @@ def integrate_sde_steered(
     n_reports = n_steps // report_interval
     rec = _steered_scan(
         _sampling._energy_fn(pot_obj), cv_fn, x,
-        _rank_noise(noise, mesh, rows, M), _Blocks(dev, _eager_blocks),
+        _rank_noise(noise, mesh, rows, M), _Blocks(dev),
         step_size, beta, f32(c0), f32(c1), _f32(kappa),
         int(report_interval), int(n_reports), int(pre_steps),
     )
@@ -1459,7 +1457,6 @@ def integrate_sde_remd(
     mesh=None,
     verbose: bool = True,
     device=None,
-    _eager_blocks: Optional[int] = None,
 ) -> REMDResult:
     """Replica-exchange (parallel tempering) sampling, all K temperature
     slots as one chain batch with neighbour-swap Metropolis attempts on the
@@ -1533,7 +1530,7 @@ def integrate_sde_remd(
                                  mesh, rows)
     n_reports = (n_steps - 1) // report_interval + 1
     rec = _sampling._em_scan(
-        _sampling._grad_fn(pot_obj), x, noise, _Blocks(dev, _eager_blocks),
+        _sampling._grad_fn(pot_obj), x, noise, _Blocks(dev),
         step_size,
         torch.as_tensor(_sampling._noise_scale(step_size, b32[rows])[:, None],
                         device=dev),

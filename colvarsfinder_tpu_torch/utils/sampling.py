@@ -12,7 +12,7 @@ The JAX package integrates as one ``lax.scan`` over report blocks of
 chain batch, in place on tensors allocated once per call
 (:class:`_Blocks`). On the card the first block of each kind (burn-in,
 report, exchange) runs eagerly on a side stream and is captured as a CUDA
-graph (``core/task.py:capture_epoch``); every later block of that kind is a
+graph (:class:`..graphs.Graphs`); every later block of that kind is a
 replay. A block's Brownian increments are drawn before the block, outside
 the graph, into a fixed buffer; the recorded frames go to device buffers
 at a row index that the block advances on the device (:class:`_Recorder`),
@@ -47,8 +47,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device
-from ..core.task import capture_epoch
-from ..ops import _cuda
+from ..graphs import Graphs, report_blocks
 from .trajectory import csv_rows
 
 __all__ = [
@@ -91,46 +90,17 @@ def _make_noise(seed: int, device: torch.device) -> _Noise:
     return _Noise(seed, device)
 
 
-def _no_key():
-    return None, []
-
-
-class _Blocks:
-    """How the blocks of one sampler call run.
-
-    :meth:`block` runs ``draw()`` (the block's random numbers, into fixed
-    buffers) and then ``body()`` (the block's steps, in place on fixed
-    tensors). On the card the first block of each ``kind`` runs eagerly on a
-    side stream and is captured as a CUDA graph; every later block of that
-    kind replays it, with its kernel launches counted
-    (:func:`..ops._cuda.replay`). A block of kind ``None`` (a burn-in's
-    partial last block) always runs eagerly. A failure raises, and the
-    graphs die with the call.
-
-    ``eager_blocks`` (private) runs every block eagerly and stops the report
-    loop after that many blocks: the eager twin of a captured run, for a
-    bit-for-bit comparison of a prefix."""
-
-    def __init__(self, device: torch.device, eager_blocks=None):
-        self.device = device
-        self.capture = device.type == "cuda" and eager_blocks is None
-        self.limit = eager_blocks
-        self.graphs: dict = {}
-
-    def n_reports(self, n: int) -> int:
-        """Report blocks to run of ``n``."""
-        return n if self.limit is None else min(n, int(self.limit))
+class _Blocks(Graphs):
+    """The graphs of one sampler call's blocks, by kind; they die with the
+    call. :meth:`block` runs ``draw()`` (the block's random numbers, into
+    fixed buffers) and then ``body()`` (the block's steps, in place on fixed
+    tensors), eagerly, replayed or captured (:meth:`..graphs.Graphs.run`);
+    a block of kind ``None`` (a burn-in's partial last block) always runs
+    eagerly."""
 
     def block(self, kind, draw, body) -> None:
         draw()
-        held = self.graphs.get(kind)
-        if held is not None:
-            _cuda.replay(held.graph, held.launches)
-        elif self.capture and kind is not None:
-            self.graphs[kind] = capture_epoch(
-                body, self.device, _no_key, what="a sampler block")
-        else:
-            body()
+        self.run(kind, body, what="a sampler block")
 
 
 class _Recorder:
@@ -329,7 +299,7 @@ def _em_scan(grad_fn, x, noise, run, step_size, scale, n_sub, n_reports,
             step(buf[j])
         rec.advance()
 
-    for b in range(run.n_reports(n_reports)):
+    for b in range(report_blocks(n_reports)):
         if exchange is not None and b % every == 0:
             def draw(b=b):
                 exchange[0](b // every)
@@ -358,7 +328,6 @@ def integrate_sde_overdamped(
     n_chains: int = 1,
     verbose: bool = True,
     device=None,
-    _eager_blocks: Optional[int] = None,
 ):
     r"""Sample overdamped Langevin dynamics with Euler–Maruyama
     (``colvarsfinder_tpu/utils/sampling.py:115-219``).
@@ -395,7 +364,7 @@ def integrate_sde_overdamped(
     is_torch = _is_torch_potential(pot_obj, X0[0])
     if is_torch:
         x = _chains(X0, dev)
-        out = _em_scan(_grad_fn(pot_obj), x, noise, _Blocks(dev, _eager_blocks),
+        out = _em_scan(_grad_fn(pot_obj), x, noise, _Blocks(dev),
                        step_size, float(_noise_scale(step_size, sampling_beta)),
                        int(report_interval), int(n_reports), int(pre_steps))
         frames = np.swapaxes(out["x"], 0, 1).astype(np.float64)
@@ -565,7 +534,7 @@ def _baoab_scan(grad_fn, x, v, noise, run, dt, c1, c2, inv_mass, sigma_v,
             step(buf[j])
         rec.advance()
 
-    for b in range(run.n_reports(n_reports)):
+    for b in range(report_blocks(n_reports)):
         run.block("main", lambda b=b: noise.normal(buf, "main", b), block)
         rec.end_block()
     return rec.result()
@@ -589,7 +558,6 @@ def integrate_sde_langevin(
     return_velocities: bool = False,
     verbose: bool = True,
     device=None,
-    _eager_blocks: Optional[int] = None,
 ):
     r"""Sample UNDERDAMPED Langevin dynamics with the BAOAB integrator
     (``colvarsfinder_tpu/utils/sampling.py:385-534``):
@@ -652,7 +620,7 @@ def integrate_sde_langevin(
 
         out = _baoab_scan(
             _grad_fn(pot_obj), _chains(X0, dev), _chains(V0, dev), noise,
-            _Blocks(dev, _eager_blocks), step_size, c1, c2, f32(inv_mass),
+            _Blocks(dev), step_size, c1, c2, f32(inv_mass),
             f32(sigma_v), int(report_interval), int(n_reports),
             int(pre_steps),
         )

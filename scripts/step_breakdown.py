@@ -39,6 +39,7 @@ sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
 import colvarsfinder_tpu_torch as cvf  # noqa: E402
+from colvarsfinder_tpu_torch import graphs  # noqa: E402
 from colvarsfinder_tpu_torch.config import set_matmul_precision  # noqa: E402
 from colvarsfinder_tpu_torch.ops import fused_eigen as fe  # noqa: E402
 
@@ -58,8 +59,8 @@ def main():
                                       dt=cs.DT, verbose=False)
     with tempfile.TemporaryDirectory() as tmp:
         task = cs.make_task(cvf, traj_obj, ref, tmp, True, "fused", 1)
-        task._eager_on_card = True
-        task.train()  # Adam's state, the kernel libraries
+        with graphs.eager():
+            task.train()  # Adam's state, the kernel libraries
         X, X_l, w, w_l = task._prepare_data()[0][0]
         model, pp, opt = task.model, task.preprocessing_layer, task.optimizer
         params = list(model.parameters())

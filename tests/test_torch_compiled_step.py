@@ -1,9 +1,13 @@
 """PyTorch port, the compiled training program on the CPU: the epoch body
 that the card captures as a CUDA graph, run eagerly here, against the JAX
 package's curves for every chunking of the epochs; the launch accounting of
-captures and replays; the events that drop a captured epoch; profile_dir
+captures and replays and the holder of graphs (``graphs.py``); the package's
+import layers around it; the events that drop a captured epoch; profile_dir
 and release_device_data. The card's side (capture, replay, graph against
 eager) is in tests/test_torch_cuda.py."""
+
+import ast
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -36,7 +40,7 @@ from colvarsfinder_tpu_torch.config import (
     set_default_dtype,
     set_matmul_precision,
 )
-from colvarsfinder_tpu_torch.core.task import CapturedEpoch
+from colvarsfinder_tpu_torch import graphs
 from colvarsfinder_tpu_torch.ops import _cuda
 from colvarsfinder_tpu_torch.ops.features import Identity
 
@@ -60,7 +64,7 @@ def test_epoch_body_gives_jax_curves(jax_run, tmp_path, fused, rtol_loss,
                           progress_interval=interval)
         task.train()
         assert sum(_cuda.launch_counts().values()) == 0  # CPU: no kernel
-        assert task._graph is None  # nothing is captured on the CPU
+        assert not task._graphs  # nothing is captured on the CPU
         assert len(task.epoch_times) == len(task.loss_list) == 4
         runs[interval] = task
     task = runs[progress_interval]
@@ -88,7 +92,7 @@ class _FakeGraph:
 def test_capture_takes_back_its_launches_and_each_replay_adds_them():
     _cuda.reset_launch_counts()
     _cuda.LAUNCHES["fused_align"] = 7
-    with _cuda.capture_launches() as held:
+    with graphs.held_counts() as held:
         # what the wrappers count while a step is captured
         _cuda.LAUNCHES["fused_align"] += 2
         _cuda.LAUNCHES["stats_fwd"] += 1
@@ -101,7 +105,7 @@ def test_capture_takes_back_its_launches_and_each_replay_adds_them():
                                      "pair_distances": 0, "kabsch_exact": 0}
     graph = _FakeGraph()
     for _ in range(3):
-        _cuda.replay(graph, held)
+        graphs.replay(graph, held)
     assert graph.replays == 3
     assert _cuda.launch_counts() == {"kabsch_qcp": 0, "fused_align": 13,
                                      "stats_fwd": 3, "stats_bwd": 3,
@@ -117,7 +121,7 @@ def test_a_capture_carries_the_heads_counts_into_each_replay():
 
     logging_utils.reset_trace()
     logging_utils.count("cvf.heads.whole", 4)
-    with _cuda.capture_launches() as held:
+    with graphs.held_counts() as held:
         logging_utils.count("cvf.heads.split", 8)
         logging_utils.count("cvf.heads.whole", 4)
         _cuda.LAUNCHES["fused_align"] += 1
@@ -129,7 +133,7 @@ def test_a_capture_carries_the_heads_counts_into_each_replay():
     assert sum(_cuda.launch_counts().values()) == 0
     graph = _FakeGraph()
     for _ in range(3):
-        _cuda.replay(graph, held)
+        graphs.replay(graph, held)
     got = logging_utils.counters()
     assert got["cvf.heads.split"] == 24 and got["cvf.heads.whole"] == 16
     assert _cuda.launch_counts()["fused_align"] == 3
@@ -139,12 +143,101 @@ def test_a_capture_carries_the_heads_counts_into_each_replay():
 def test_a_failed_capture_counts_nothing():
     _cuda.reset_launch_counts()
     with pytest.raises(RuntimeError, match="capturing"):
-        with _cuda.capture_launches() as held:
+        with graphs.held_counts() as held:
             _cuda.LAUNCHES["kabsch_qcp"] += 2
             raise RuntimeError("operation not permitted when stream is "
                                "capturing")
     assert held["kabsch_qcp"] == 2
     assert sum(_cuda.launch_counts().values()) == 0
+
+
+def test_a_holder_captures_each_kind_once_and_drops_every_kind_when_stale(
+        monkeypatch):
+    """A holder of graphs on the card, with a stubbed capture: one capture
+    per kind; each replay adds the counts its graph holds; a changed key
+    drops every kind; inside graphs.eager() the body runs every time."""
+    from colvarsfinder_tpu_torch import logging_utils
+
+    def capture(body, device, key_fn, what):
+        body()  # the eager run
+        key, held = key_fn()
+        with graphs.held_counts() as launches:
+            body()
+        return graphs.Captured(_FakeGraph(), launches, key, held)
+
+    monkeypatch.setattr(graphs, "capture", capture)
+    logging_utils.reset_trace()
+    key, runs = [0], {"train": 0, "test": 0}
+
+    def body(kind):
+        runs[kind] += 1
+        _cuda.LAUNCHES["fused_align"] += 2
+        logging_utils.count("cvf.heads.split", 3)
+
+    holder = graphs.Graphs(torch.device("cuda"), lambda: (key[0], []))
+    assert graphs.Graphs(torch.device("cpu")).mode("train") == "eager"
+    assert holder.mode(None) == "eager"  # a kind of None is never captured
+    assert holder.mode("train") == "capture"
+    for _ in range(3):
+        for kind in runs:
+            holder.run(kind, lambda kind=kind: body(kind))
+    assert sorted(holder) == ["test", "train"]
+    assert holder.mode("train") == "replay"
+    assert runs == {"train": 2, "test": 2}  # the eager run and the capture
+    assert [holder[k].graph.replays for k in runs] == [2, 2]
+    # three epochs of each kind: the eager one and two replays
+    assert _cuda.launch_counts()["fused_align"] == 2 * 3 * 2
+    assert logging_utils.counters()["cvf.heads.split"] == 3 * 3 * 2
+    assert not holder.check() and len(holder) == 2
+    key[0] = 1
+    assert holder.check() and not holder
+    with graphs.eager():
+        assert holder.mode("train") == "eager"
+        for _ in range(3):
+            holder.run("train", lambda: body("train"))
+    assert runs["train"] == 5 and not holder
+    with graphs.eager(blocks=4):
+        assert graphs.report_blocks(10) == 4 and graphs.report_blocks(3) == 3
+    assert graphs.report_blocks(10) == 10 and holder.mode("train") == "capture"
+    logging_utils.reset_trace()
+
+
+PKG = Path(graphs.__file__).resolve().parent
+
+
+def _package_imports(path: Path) -> set:
+    """The package's modules that the file ``path`` imports, anywhere in
+    it (a function's lazy imports included)."""
+    here = path.relative_to(PKG.parent).with_suffix("").parts
+
+    def module(dotted: str) -> bool:
+        p = PKG.parent.joinpath(*dotted.split("."))
+        return p.with_suffix(".py").exists() or (p / "__init__.py").exists()
+
+    found = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            found.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            parts = list(here[:len(here) - node.level]) if node.level else []
+            base = ".".join(parts + ([node.module] if node.module else []))
+            found.update(f"{base}.{a.name}" if module(f"{base}.{a.name}")
+                         else base for a in node.names)
+    return {m for m in found if m.split(".")[0] == PKG.name}
+
+
+def test_no_module_outside_core_imports_the_task_module():
+    task = f"{PKG.name}.core.task"
+    outside = [p for p in sorted(PKG.rglob("*.py"))
+               if p.relative_to(PKG).parts[0] != "core"]
+    assert len(outside) > 30
+    assert [p.name for p in outside if task in _package_imports(p)] == []
+    assert task in _package_imports(PKG / "core" / "eigenfunction.py")
+
+
+def test_the_graphs_module_imports_nothing_above_the_kernel_build_layer():
+    assert _package_imports(PKG / "graphs.py") == {
+        f"{PKG.name}.logging_utils", f"{PKG.name}.ops._cuda"}
 
 
 def _task(path, **kw):
@@ -163,7 +256,7 @@ def _task(path, **kw):
 def _fake_capture(task):
     """Install a captured epoch as the card would after its eager epoch."""
     key, held = task._graph_key()
-    task._graph = CapturedEpoch(_FakeGraph(), {}, key, held)
+    task._graphs["epoch"] = graphs.Captured(_FakeGraph(), {}, key, held)
 
 
 @pytest.fixture
@@ -186,7 +279,7 @@ def test_events_drop_the_captured_epoch(trained, event):
         assert task.load_training_state(str(state)) == 0
     else:
         getattr(task, event)()
-    assert task._graph is None
+    assert not task._graphs
     # the gradients the graph left on the parameters go with it
     assert task.model.weights[0].grad is None
     if event == "release_device_data":
@@ -233,7 +326,7 @@ def test_a_stale_captured_epoch_is_dropped(trained, change):
     precision, dtype = matmul_precision(), default_dtype()
     _fake_capture(task)
     key = task._graph_key()[0]
-    assert key == task._graph.key
+    assert key == task._graphs["epoch"].key
     try:
         if CHANGES[change] is not None:
             CHANGES[change](task, state)
@@ -243,7 +336,7 @@ def test_a_stale_captured_epoch_is_dropped(trained, change):
         set_matmul_precision({"medium": "default"}.get(precision, precision))
         set_default_dtype(dtype)
     assert changed == (change != "nothing")
-    assert (task._graph is None) == changed
+    assert (not task._graphs) == changed
 
 
 def test_profile_dir_writes_a_trace(tmp_path):

@@ -47,7 +47,7 @@ from colvarsfinder_tpu_torch import (
 from colvarsfinder_tpu_torch.core.losses import _gram_quadratic_form
 from colvarsfinder_tpu_torch.models import EigenFunctions, create_sequential_nn
 from colvarsfinder_tpu_torch.ops import _cuda
-from colvarsfinder_tpu_torch import logging_utils
+from colvarsfinder_tpu_torch import graphs, logging_utils
 from colvarsfinder_tpu_torch.ops.alignment import (
     AlignmentLayer,
     align_frames,
@@ -309,7 +309,7 @@ def test_quaternion_layer_captured_equals_eager(dev):
     with torch.cuda.stream(stream):
         layer(static)  # warm-up: loads K6
         graph = torch.cuda.CUDAGraph()
-        with _cuda.capture_launches() as held:
+        with graphs.held_counts() as held:
             with torch.cuda.graph(graph, stream=stream):
                 out = layer(static)
     torch.cuda.current_stream().wait_stream(stream)
@@ -317,7 +317,7 @@ def test_quaternion_layer_captured_equals_eager(dev):
     assert held["cvf.align.quat_kernel"] == 20000
     for seed in (11, 12):
         static.copy_(torch.from_numpy(_frames(20000, 10, 10, seed)[0]))
-        _cuda.replay(graph, held)
+        graphs.replay(graph, held)
         torch.cuda.synchronize()
         assert torch.equal(out, layer(static))
         assert torch.equal(out, align_frames(static, layer.ref_centered,
@@ -680,6 +680,13 @@ def _train(task, epochs=None):
     return _cuda.launch_counts()
 
 
+def _train_eager(task, epochs=None):
+    """:func:`_train` with every graph run eagerly: the captured run's
+    eager twin."""
+    with graphs.eager():
+        return _train(task, epochs)
+
+
 def _rows(task):
     """Every batch's metric row of every epoch, train then test."""
     return np.stack([np.concatenate(epoch) for epoch in task.loss_list])
@@ -689,18 +696,19 @@ def _rows(task):
 def test_captured_epochs_equal_eager_epochs(dev, tmp_path, kind):
     graph = _graph_task(tmp_path / "graph", kind, 5)
     eager = _graph_task(tmp_path / "eager", kind, 5)
-    eager._eager_on_card = True
     runs = []
     for epochs in (5, 2):
         # a second train() call replays the same graph
-        before = graph._graph
+        before = graph._graphs.get("epoch")
         counts = _train(graph, epochs)
-        assert counts == _schedule(kind, epochs) == _train(eager, epochs)
-        assert eager._graph is None
+        assert counts == _schedule(kind, epochs) == _train_eager(eager,
+                                                                 epochs)
+        assert not eager._graphs
         if before is not None:
-            assert graph._graph is before
+            assert graph._graphs["epoch"] is before
         runs.append((_rows(graph), _rows(eager)))
-    assert {name: graph._graph.launches[name] for name in _cuda.KERNELS} == {
+    held = graph._graphs["epoch"].launches
+    assert {name: held[name] for name in _cuda.KERNELS} == {
         name: n // 5 for name, n in _schedule(kind, 5).items()}
     # each replay ran the step on new parameters: no epoch repeats the last
     rows = runs[0][0]
@@ -732,11 +740,11 @@ def test_resumed_run_equals_an_uninterrupted_one(dev, tmp_path):
     first.save_training_state(1, state)
     # loading replaces the optimizer's state tensors: the graph goes
     first.load_training_state(state)
-    assert first._graph is None
+    assert not first._graphs
     resumed = _graph_task(tmp_path / "resumed", "fused", 3)
     assert resumed.load_training_state(state) == 1
     assert _train(resumed) == _schedule("fused", 3)
-    assert resumed._graph is not None
+    assert "epoch" in resumed._graphs
     np.testing.assert_array_equal(_rows(resumed), _rows(whole)[2:])
     for a, b in zip(resumed.model.parameters(), whole.model.parameters()):
         assert torch.equal(a, b)
@@ -758,7 +766,7 @@ def test_a_state_saved_on_the_cpu_resumes_on_the_card(dev, tmp_path):
     assert card.load_training_state(state) == 0
     assert all(g["capturable"] for g in card.optimizer.param_groups)
     assert _train(card) == _schedule("plain", 2)
-    assert card._graph is not None and np.isfinite(card.train_loss).all()
+    assert "epoch" in card._graphs and np.isfinite(card.train_loss).all()
 
 
 def test_release_device_data_frees_and_captures_again(dev, tmp_path):
@@ -766,12 +774,12 @@ def test_release_device_data_frees_and_captures_again(dev, tmp_path):
     _train(task)
     held = torch.cuda.memory_allocated()
     task.release_device_data()
-    assert task._graph is None and task._prepared is None
+    assert not task._graphs and task._prepared is None
     freed = held - torch.cuda.memory_allocated()
     # at least the gathered batches: 2 x 12,000 frames x 30 floats
     assert freed >= 2 * (G_TRAIN * G_BATCH + 1_200) * 30 * 4
     assert _train(task, 2) == _schedule("fused", 2)
-    assert task._graph is not None and np.isfinite(task.train_loss).all()
+    assert "epoch" in task._graphs and np.isfinite(task.train_loss).all()
 
 
 def test_profile_dir_traces_the_replays(dev, tmp_path):
@@ -830,7 +838,7 @@ def test_a_host_sync_in_the_step_fails_the_capture(dev, tmp_path):
         lambda x: task.preprocessing_layer(x) * float(x.abs().max() > 0))
     with pytest.raises(RuntimeError, match="CUDA graph"):
         _train(task)
-    assert task._graph is None
+    assert not task._graphs
     assert not hasattr(task, "train_loss")
 
 
@@ -948,16 +956,15 @@ def _dirichlet_schedule(kind, epochs, first_call):
 def test_dirichlet_captured_epochs_equal_eager_epochs(dev, tmp_path, kind):
     graph = _dirichlet_task(tmp_path / "graph", kind, 5)
     eager = _dirichlet_task(tmp_path / "eager", kind, 5)
-    eager._eager_on_card = True
     rows = []
     for epochs, first in ((5, True), (2, False)):
-        before = graph._graph
+        before = graph._graphs.get("epoch")
         counts = _train(graph, epochs)
         want = _dirichlet_schedule(kind, epochs, first)
-        assert counts == want == _train(eager, epochs)
-        assert eager._graph is None
+        assert counts == want == _train_eager(eager, epochs)
+        assert not eager._graphs
         if before is not None:
-            assert graph._graph is before
+            assert graph._graphs["epoch"] is before
         rows.append((_rows(graph), _rows(eager)))
     assert graph._gram is ("vjp" not in kind)
     assert np.isfinite(rows[0][0]).all()
@@ -977,7 +984,7 @@ def test_generator_resume_equals_an_uninterrupted_run(dev, tmp_path):
     resumed = _dirichlet_task(tmp_path / "resumed", "gen_gram", 2)
     assert resumed.load_training_state(state) == 1
     _train(resumed)
-    assert resumed._graph is not None
+    assert "epoch" in resumed._graphs
     np.testing.assert_array_equal(_rows(resumed), _rows(whole)[2:])
     for a, b in zip(resumed.model.parameters(), whole.model.parameters()):
         assert torch.equal(a, b)
@@ -1067,7 +1074,7 @@ def test_ae_features_take_one_k2_launch(dev, tmp_path):
             task.traj_obj.trajectory)).to(dev))
     torch.testing.assert_close(task._feature_traj, want, atol=2e-4, rtol=0)
     assert _train(task) == dict.fromkeys(_cuda.LAUNCHES, 0)
-    assert task._graph is not None and np.isfinite(task.train_loss).all()
+    assert "epoch" in task._graphs and np.isfinite(task.train_loss).all()
     assert task.train_loss[-1, 0] < task.train_loss[0, 0]
 
 
@@ -1091,17 +1098,16 @@ def _ae_schedule(kind, epochs, first_call):
 def test_regae_captured_epochs_equal_eager_epochs(dev, tmp_path, kind):
     graph = _ae_task(tmp_path / "graph", kind, 4)
     eager = _ae_task(tmp_path / "eager", kind, 4)
-    eager._eager_on_card = True
     enc0 = [p.detach().clone() for p in graph.model.encoder.parameters()]
     rows = []
     for epochs, first in ((4, True), (2, False)):
-        before = graph._graph
+        before = graph._graphs.get("epoch")
         counts = _train(graph, epochs)
-        assert counts == _ae_schedule(kind, epochs, first) == _train(eager,
-                                                                     epochs)
-        assert eager._graph is None
+        assert counts == _ae_schedule(kind, epochs, first) == _train_eager(
+            eager, epochs)
+        assert not eager._graphs
         if before is not None:
-            assert graph._graph is before
+            assert graph._graphs["epoch"] is before
         rows.append((_rows(graph), _rows(eager)))
     assert graph._gram is (kind == "reg_gram")
     assert np.isfinite(rows[0][0]).all()
@@ -1220,9 +1226,10 @@ def test_captured_sweep_equals_eager_sweep(dev, tmp_path, kind):
     ensemble.release_sweeps()
     cap = train_hyperparameter_sweep(task, grid)
     reps = next(reversed(ensemble._SWEEPS.values()))
-    assert reps.graph is not None
+    assert "epoch" in reps.graphs
     again = train_hyperparameter_sweep(task, grid)  # replays only
-    eager = train_hyperparameter_sweep(task, grid, _eager=True)
+    with graphs.eager():
+        eager = train_hyperparameter_sweep(task, grid)
     for a, b, c in zip(cap, again, eager):
         for x, y in ((a, b), (a, c)):
             assert np.array_equal(x.train_loss, y.train_loss)
@@ -1245,7 +1252,7 @@ def test_k2_launches_per_sweep_epoch_do_not_depend_on_r(dev, tmp_path):
         _cuda.reset_launch_counts()
         train_hyperparameter_sweep(task, _grid(R))
         reps = next(reversed(ensemble._SWEEPS.values()))
-        per_epoch.append(reps.graph.launches["fused_align"])
+        per_epoch.append(reps.graphs["epoch"].launches["fused_align"])
         assert _cuda.launch_counts()["fused_align"] == 2 * nb * 3
     assert per_epoch == [2 * nb, 2 * nb]
     ensemble.release_sweeps()
@@ -1298,8 +1305,10 @@ def test_split_heads_replays_count_and_equal_eager_epochs(dev, tmp_path,
         logging_utils.reset_trace()
         got = train_hyperparameter_sweep(task, _grid(4))  # replays only
         counted = logging_utils.counters()
-        held = next(reversed(ensemble._SWEEPS.values())).graph.launches
-        want = train_hyperparameter_sweep(task, _grid(4), _eager=True)
+        held = next(reversed(
+            ensemble._SWEEPS.values())).graphs["epoch"].launches
+        with graphs.eager():
+            want = train_hyperparameter_sweep(task, _grid(4))
         for a, b in zip(got, want):
             assert np.array_equal(a.train_loss, b.train_loss)
             assert np.array_equal(a.test_loss, b.test_loss)
@@ -1313,15 +1322,14 @@ def test_split_heads_replays_count_and_equal_eager_epochs(dev, tmp_path,
             return _graph_task(path, kind, 3)
 
         graph, eager = make(tmp_path / "graph"), make(tmp_path / "eager")
-        eager._eager_on_card = True
         _train(graph)
-        _train(eager)
+        _train_eager(eager)
         logging_utils.reset_trace()
         replays = 2
         _train(graph, replays)  # replays only
         counted = logging_utils.counters()
-        held = graph._graph.launches
-        _train(eager, replays)
+        held = graph._graphs["epoch"].launches
+        _train_eager(eager, replays)
         np.testing.assert_array_equal(_rows(graph), _rows(eager))
         for a, b in zip(graph.model.parameters(), eager.model.parameters()):
             assert torch.equal(a, b)
@@ -1432,27 +1440,26 @@ def test_streamed_runs_equal_resident_runs(dev, tmp_path, kind):
     np.testing.assert_array_equal(_rows(streamed), _rows(resident))
     for a, b in zip(streamed.model.parameters(), resident.model.parameters()):
         assert torch.equal(a, b)
-    assert sorted(streamed._stream_graphs) == ["test", "train"]
+    assert sorted(streamed._graphs) == ["test", "train"]
     if kind == "fused":
-        assert streamed._stream_graphs["train"].launches == {
+        assert streamed._graphs["train"].launches == {
             "kabsch_qcp": 0, "fused_align": 2, "stats_fwd": 1,
             "stats_bwd": 1, "pair_distances": 0, "kabsch_exact": 0}
-        assert streamed._stream_graphs["test"].launches == {
+        assert streamed._graphs["test"].launches == {
             "kabsch_qcp": 0, "fused_align": 2, "stats_fwd": 1,
             "stats_bwd": 0, "pair_distances": 0, "kabsch_exact": 0}
     # a second call replays the same step graphs
-    graphs = dict(streamed._stream_graphs)
+    held = dict(streamed._graphs)
     assert _train(streamed, 2) == _train(resident, 2) == _schedule(kind, 2)
-    assert streamed._stream_graphs == graphs
+    assert streamed._graphs == held
     np.testing.assert_array_equal(_rows(streamed), _rows(resident))
 
 
 def test_captured_streamed_steps_equal_eager_streamed_steps(dev, tmp_path):
     graph = _graph_task(tmp_path / "graph", "fused", 4, streaming=True)
     eager = _graph_task(tmp_path / "eager", "fused", 4, streaming=True)
-    eager._eager_on_card = True
-    assert _train(graph) == _train(eager) == _schedule("fused", 4)
-    assert not eager._stream_graphs and graph._stream_graphs
+    assert _train(graph) == _train_eager(eager) == _schedule("fused", 4)
+    assert not eager._graphs and sorted(graph._graphs) == ["test", "train"]
     np.testing.assert_array_equal(_rows(graph), _rows(eager))
     for a, b in zip(graph.model.parameters(), eager.model.parameters()):
         assert torch.equal(a, b)
@@ -1627,12 +1634,12 @@ def test_meshed_epochs_equal_eager_and_unmeshed_epochs(dev, nccl_mesh,
     plain = _graph_task(tmp_path / "plain", "fused", 4, **kw)
     graph = _graph_task(tmp_path / "graph", "fused", 4, mesh=nccl_mesh, **kw)
     eager = _graph_task(tmp_path / "eager", "fused", 4, mesh=nccl_mesh, **kw)
-    eager._eager_on_card = True
     want = dict.fromkeys(_cuda.LAUNCHES, 0)
     want["fused_align"] = 2 * 4 * (G_TRAIN + G_TEST)
-    assert _train(plain) == _train(graph) == _train(eager) == want
-    captured = graph._stream_graphs if streaming else graph._graph
-    assert captured and not eager._graph and not eager._stream_graphs
+    assert _train(plain) == _train(graph) == _train_eager(eager) == want
+    assert sorted(graph._graphs) == (["test", "train"] if streaming
+                                     else ["epoch"])
+    assert not eager._graphs
     for other in (graph, eager):
         np.testing.assert_array_equal(_rows(other), _rows(plain))
         for a, b in zip(other.model.parameters(), plain.model.parameters()):
@@ -1737,12 +1744,13 @@ def _sampler(kind, tmp_path, **over):
 
 @pytest.mark.parametrize("kind", ["overdamped", "baoab", "metad", "umbrella",
                                   "steered", "remd"])
-def test_captured_sampler_blocks_equal_eager_blocks(dev, tmp_path, kind):
+def test_captured_sampler_blocks_equal_their_eager_twin(dev, tmp_path, kind):
     """Every block after the first of a kind is a graph replay; the run
     equals the same run with every block eager, bit for bit, the burn-in's
     partial last block included."""
     captured = _sampler(kind, tmp_path)
-    eager = _sampler(kind, tmp_path, _eager_blocks=100)
+    with graphs.eager():
+        eager = _sampler(kind, tmp_path)
     assert len(captured) == len(eager) > 1
     for a, b in zip(captured, eager):
         np.testing.assert_array_equal(a, b)
@@ -1971,14 +1979,13 @@ def test_distance_epochs_replay_k5_and_equal_eager_epochs(dev, tmp_path):
 
     graph = _distance_task(tmp_path / "graph", 3)
     eager = _distance_task(tmp_path / "eager", 3)
-    eager._eager_on_card = True
     _train(graph)
-    _train(eager)
+    _train_eager(eager)
     logging_utils.reset_trace()
     replays = 2
     counts = _train(graph, replays)  # replays only
     counted = logging_utils.counters()
-    held = graph._graph.launches
+    held = graph._graphs["epoch"].launches
     batches = G_TRAIN + G_TEST
     assert held["pair_distances"] == 2 * batches
     assert counts["pair_distances"] == replays * 2 * batches
@@ -1990,7 +1997,7 @@ def test_distance_epochs_replay_k5_and_equal_eager_epochs(dev, tmp_path):
     for name in ("cvf.features.pairs_grouped", "cvf.heads.split",
                  "cvf.heads.whole"):
         assert counted.get(name, 0) == replays * held.get(name, 0), name
-    _train(eager, replays)
+    _train_eager(eager, replays)
     np.testing.assert_array_equal(_rows(graph), _rows(eager))
     for a, b in zip(graph.model.parameters(), eager.model.parameters()):
         assert torch.equal(a, b)

@@ -23,6 +23,7 @@ import torch
 
 from colvarsfinder_tpu.utils import sampling as jsampling
 
+from colvarsfinder_tpu_torch import graphs
 from colvarsfinder_tpu_torch.utils import sampling as tsampling
 
 F32_ATOL = 2e-6
@@ -263,7 +264,8 @@ def test_csv_values_are_written_as_pandas_writes_them(tmp_path):
 
 def test_recorder_chunks_give_the_same_frames(tmp_path, monkeypatch):
     """Reports fetched once per chunk of rows equal one fetch per call, and
-    the private eager prefix equals the start of a full run."""
+    the eager prefix (graphs.eager(blocks=4)) equals the start of a full
+    run."""
     kw = dict(n_steps=500, report_interval=25, seed=9, X0=[1.0, 0.0],
               n_chains=2, verbose=False, device="cpu")
     pot = triple_well(torch)
@@ -273,8 +275,9 @@ def test_recorder_chunks_give_the_same_frames(tmp_path, monkeypatch):
     chunked, _ = tsampling.integrate_sde_overdamped(
         pot, sampling_output_path=str(tmp_path / "b"), **kw)
     np.testing.assert_array_equal(chunked, full)
-    prefix, _ = tsampling.integrate_sde_overdamped(
-        pot, sampling_output_path=str(tmp_path / "c"), _eager_blocks=4, **kw)
+    with graphs.eager(blocks=4):
+        prefix, _ = tsampling.integrate_sde_overdamped(
+            pot, sampling_output_path=str(tmp_path / "c"), **kw)
     np.testing.assert_array_equal(prefix[:, :4], full[:, :4])
     assert not prefix[:, 4:].any()
 

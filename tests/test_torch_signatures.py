@@ -65,9 +65,9 @@ MORE = {
                       "quaternion_to_rotation_entries"),
     "utils.enhanced": ("SteeredResult", "integrate_sde_steered"),
 }
-#: where the samplers run (the card unless 'cpu'), and the eager twin of a
-#: captured run (ROADMAP.md, deliberate differences: samplers)
-_SAMPLER = ("device", "_eager_blocks")
+#: where the samplers run (the card unless 'cpu') (ROADMAP.md, deliberate
+#: differences: samplers)
+_SAMPLER = ("device",)
 #: port-only trailing parameters
 EXTRA = {
     # where the samplers of the adaptive loop run
